@@ -1,33 +1,50 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's zero-shot edit once on one NVIDIA H100.
+"""Run the PyTorch/CUDA port's edit and one-shot tuning on one NVIDIA H100.
 
     python3 chip_smoke.py
 
 Phases, each synchronised and timed:
 
 1. device: CUDA and compute capability 9.0 are required (there is no CPU path);
-2. build: compile the hand-written kernels from fatezero_tpu_torch/csrc;
-3. kernels: K1 (flash-attention forward) against its plain PyTorch version
-   at every attention-site shape of the edit, in fp32 and bf16, plus a
-   double-wide-V case; any shape outside its tolerance fails the run;
-4. reference: the slice at a small size (random:tiny, fp32) on the card,
-   through the kernels, against the same slice on the CPU (plain versions);
-5. slice: the full-width teaser edit (random:sd weights from a seed, teaser
-   model_config, 8 frames at 512x512, bf16 model, 10 DDIM steps): encode both
-   prompts, VAE-encode a seeded synthetic clip, invert with a full capture,
-   edit from the stored payload, decode. Outputs must have the right shapes
-   and be finite, K1 must have launched, and no attention site with 256 or
-   more queries may have taken the plain path.
+2. build: compile the hand-written kernels from fatezero_tpu_torch/csrc, one
+   nvcc per source, all started together;
+3. kernels, each against its plain PyTorch version on the same inputs:
+   K1 (flash-attention forward) at every attention-site shape of the edit, in
+   fp32 and bf16, plus a double-wide-V case; K1 with its log-sum-exp, K2 (dQ)
+   and K3 (dK, dV) against plain autograd through `xla_attention` at every
+   training-site shape, in fp32 and bf16; K4 (LayerNorm) against `_ln_math`
+   at the edit's LayerNorm shapes. Any value outside its tolerance fails;
+4. reference: the edit at a small size (random:tiny, fp32) on the card,
+   through the kernels, against the same edit on the CPU (plain versions);
+5. tuning reference: one tuning update at a small size (random:tiny, fp32,
+   128x128 frames, so K1/K2/K3 run) on the card against the CPU, with the
+   same host-drawn randoms;
+6. the main paths at full SD-1.4 width (random:sd weights from a seed), each
+   driven with every launch count set to 0 just before it and read just
+   after:
+   a. edit: the teaser edit (teaser model_config, 8 frames at 512x512, bf16,
+      10 DDIM steps): encode both prompts, VAE-encode a seeded synthetic
+      clip, invert with a full capture, edit from the stored payload, decode;
+   b. the same edit with FZ_PALLAS_LN=1 (LayerNorm through K4), held to (a);
+   c. tuning: three updates of config/tune/jeep.yaml's settings (lora 160,
+      gradient checkpointing, temporal convs trained, lr 1e-5 constant, seed
+      74831) on 8 frames at 512x512 in bf16.
+   Outputs must be finite and of the right shapes, every kernel of a path
+   must have launched, K1/K2/K3 must have launched once per counted site, no
+   attention site with 256 or more queries may take the plain path, frozen
+   parameters must stay bit-identical and some trainable ones must move.
 
-The line before the last is a JSON object with each kernel's launch count on
-the main path, its worst error against the plain version, and its time beside
-the plain version's; the last line is the device contract
+The line before the last two is a JSON object with each kernel's launches on
+its main path, worst error against the plain version, time beside the plain
+version's, the library call's and the bound; then the card's name and power
+limit; the last line is the device contract
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits nonzero.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -39,6 +56,15 @@ FRAMES, RES = 8, 512
 TEASER = {"lora": 160, "SparseCausalAttention_index": ["mid"], "least_sc_channel": 640}
 SOURCE = "a silver jeep driving down a curvy road in the countryside"
 TARGET = "watercolor painting of a silver jeep driving down a curvy road in the countryside"
+# config/tune/jeep.yaml: model_config, gradient_checkpointing, seed, learning_rate,
+# train_temporal_conv (lr_scheduler defaults to constant)
+JEEP = {"lora": 160, "gradient_checkpointing": True}
+JEEP_PROMPT = "a silver jeep driving down a curvy road in the countryside,"
+TUNE_SEED, TUNE_LR, TUNE_STEPS = 74831, 1e-5, 3
+
+KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "layer_norm.cu")
+# one H100 SXM (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
+PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 # (site, d, Sq, Skv, dv) of every K1 call in the edit at 64x64 latents; fold
 # rows = 2 CFG rows x 8 frames x 8 heads (the inversion folds 64)
@@ -52,6 +78,21 @@ K1_SITES = [
     ("16^2 cross", 160, 256, 77, 160),
 ]
 K1_WIDE_V = ("32^2 wide V", 80, 1024, 1024, 160)
+# (site, d, Sq, Skv) of every flash call in tuning: rows = 1 x 8 frames x 8
+# heads; sparse-causal [-1, 'first'] self-attention sees 2 frames of keys
+TRAIN_ROWS = FRAMES * 8
+TRAIN_SITES = [
+    ("64^2 self", 40, 4096, 8192),
+    ("64^2 cross", 40, 4096, 77),
+    ("32^2 self", 80, 1024, 2048),
+    ("32^2 cross", 80, 1024, 77),
+    ("16^2 self", 160, 256, 512),
+    ("16^2 cross", 160, 256, 77),
+]
+# [rows, C] of every LayerNorm in the edit (2 CFG rows x 8 frames x tokens),
+# and CLIP's (2 prompts x 77 tokens)
+LN_SHAPES = [(2 * FRAMES * 4096, 320), (2 * FRAMES * 1024, 640), (2 * FRAMES * 256, 1280),
+             (2 * FRAMES * 64, 1280), (2 * 77, 768)]
 
 
 def log(msg: str) -> None:
@@ -84,15 +125,62 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernels():
-    """K1 against xla_attention at every site shape; returns (max_err, ms, plain_ms)
-    where the times sum one bf16 call of each main-path site shape."""
+def device_ms(fn, reps: int) -> float:
+    """Kernel time on the device per call of `fn` (torch.profiler), summed over
+    every kernel it launches. For calls short enough that host overhead
+    between launches would dominate CUDA-event timing."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
+class Totals:
+    """Per-kernel sums over the main-path shapes (bf16) of the check phases."""
+
+    def __init__(self):
+        self.err = 0.0
+        self.ms = self.plain_ms = self.bound_ops_ms = self.bound_bytes_ms = 0.0
+        self.library_ms = 0.0
+
+    def add(self, ms, plain_ms, library_ms, flops, nbytes):
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.library_ms += library_ms
+        self.bound_ops_ms += flops / PEAK_BF16_FLOPS * 1e3
+        self.bound_bytes_ms += nbytes / PEAK_BYTES * 1e3
+
+    def entry(self, name, source, replaces, launches):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
+            "bound_ms": max(self.bound_ops_ms, self.bound_bytes_ms),
+            "bound_by": "operations" if self.bound_ops_ms >= self.bound_bytes_ms else "bytes",
+            "library_ms": self.library_ms,
+        }
+
+
+def sdpa(q, k, v, scale):
+    """The library call computing K1's function: [B, S, d] folded rows as heads."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale)[0]
+
+
+def check_edit_k1(k1: Totals):
+    """K1 against xla_attention at every edit site shape; adds the bf16 main-path
+    shapes to k1's sums."""
     import torch
 
     from fatezero_tpu_torch.ops import flash_attention as FA
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst, k1_ms, plain_ms = 0.0, 0.0, 0.0
     for site in K1_SITES + [K1_WIDE_V]:
         name, d, sq, skv, dv = site
         rows = K1_ROWS if site is not K1_WIDE_V else K1_ROWS // 2
@@ -112,31 +200,140 @@ def check_kernels():
             reps = 5 if sq * skv >= 4096 * 4096 else 20
             t_k1 = cuda_ms(lambda: FA.flash_attention(q, k, v, scale), reps)
             t_plain = cuda_ms(lambda: FA.xla_attention(q, k, v, scale), reps)
+            t_lib = cuda_ms(lambda: sdpa(q, k, v, scale), reps) if dv == d else float("nan")
             log(
                 f"[K1] {name:12s} rows={rows} d={d} Sq={sq} Skv={skv} dv={dv} {str(dtype):14s} "
-                f"max_abs_err={err:.3e} tol={tol:.3e} k1_ms={t_k1:.3f} plain_ms={t_plain:.3f}"
+                f"max_abs_err={err:.3e} tol={tol:.3e} k1_ms={t_k1:.3f} plain_ms={t_plain:.3f} sdpa_ms={t_lib:.3f}"
             )
             if not err <= tol:
                 raise AssertionError(f"K1 disagrees with the plain version at {site} {dtype}: {err} > {tol}")
-            worst = max(worst, err)
+            k1.err = max(k1.err, err)
             if dtype == torch.bfloat16 and site is not K1_WIDE_V:
-                k1_ms += t_k1
-                plain_ms += t_plain
+                flops = 2 * rows * sq * skv * (d + dv)
+                nbytes = 2 * rows * (sq * d + skv * d + skv * dv + sq * dv)
+                k1.add(t_k1, t_plain, t_lib, flops, nbytes)
             del q, k, v, out, ref
     torch.cuda.empty_cache()
-    return worst, k1_ms, plain_ms
 
 
-def run_slice(device, tag, model_config, dtype, frames, res, steps, seed=0):
-    """Encode prompts and a seeded clip, invert with capture, edit, decode;
-    on the card each stage is a timed phase named after `tag`."""
+def check_training_kernels(k2: Totals, k3: Totals):
+    """K1 with its LSE, K2 and K3 against plain autograd through xla_attention
+    at every tuning site shape; adds the bf16 shapes to k2's and k3's sums."""
     import torch
 
-    from fatezero_tpu_torch.models.loader import load_models
+    from fatezero_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = TRAIN_ROWS
+    for name, d, sq, skv in TRAIN_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (
+                torch.randn(rows, n, d, device="cuda", generator=gen).to(dtype) for n in (sq, skv, skv, sq)
+            )
+            scale = d**-0.5
+            o, lse = FA.flash_forward(q, k, v, scale, with_lse=True)
+            dq = FA.flash_dq(q, k, v, o, lse, do, scale)
+            dk, dv = FA.flash_dkv(q, k, v, o, lse, do, scale)
+            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+            ref_o = FA.xla_attention(qr, kr, vr, scale)
+            ref_grads = torch.autograd.grad(ref_o, (qr, kr, vr), do)
+            ref_lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, -1)
+            torch.cuda.synchronize()
+            errs, bad = {}, []
+            for key, got, ref in [("o", o, ref_o), ("lse", lse, ref_lse), ("dq", dq, ref_grads[0]),
+                                  ("dk", dk, ref_grads[1]), ("dv", dv, ref_grads[2])]:
+                ref = ref.detach().float()
+                err = (got.float() - ref).abs().max().item()
+                big = ref.abs().max().item()
+                if key == "lse" or dtype == torch.float32:
+                    # fp32 arithmetic on both sides, summed in other orders
+                    tol = 1e-4 * max(1.0, big)
+                elif key == "o":
+                    tol = 2**-7 * big + 1e-4  # one bf16 unit at the largest output
+                else:
+                    # two bf16 units at the largest gradient: the rounding of
+                    # the output, and delta read from the bf16 O
+                    tol = 2**-6 * big + 1e-4
+                errs[key] = err
+                if not err <= tol:
+                    bad.append(f"{key}: {err:.3e} > tol {tol:.3e}")
+            del ref_o, ref_grads, qr, kr, vr, ref_lse
+            if bad:
+                log(f"[K1-K3] {name} {dtype} disagrees with plain autograd: {'; '.join(bad)}")
+                raise AssertionError(f"K1/K2/K3 disagree with plain autograd at {name} {dtype}")
+            reps = 3 if sq * skv >= 4096 * 4096 else 10
+            t_k1 = cuda_ms(lambda: FA.flash_forward(q, k, v, scale, with_lse=True), reps)
+            t_k2 = cuda_ms(lambda: FA.flash_dq(q, k, v, o, lse, do, scale), reps)
+            t_k3 = cuda_ms(lambda: FA.flash_dkv(q, k, v, o, lse, do, scale), reps)
+            t_plain_fwd = cuda_ms(lambda: FA.attention_with_lse(q, k, v, scale), reps)
+            t_plain_bwd = cuda_ms(lambda: FA.flash_bwd_reference(q, k, v, o, lse, do, scale), reps)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            with torch.enable_grad():
+                lib_out = sdpa(qs, ks, vs, scale)
+            t_lib = cuda_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True), reps)
+            del lib_out, qs, ks, vs
+            log(
+                f"[K1-K3] {name:10s} rows={rows} d={d} Sq={sq} Skv={skv} {str(dtype):14s} "
+                + " ".join(f"err_{key}={e:.3e}" for key, e in errs.items())
+                + f" k1_lse_ms={t_k1:.3f} k2_ms={t_k2:.3f} k3_ms={t_k3:.3f} plain_fwd_ms={t_plain_fwd:.3f}"
+                f" plain_bwd_ms={t_plain_bwd:.3f} sdpa_bwd_ms={t_lib:.3f}"
+            )
+            k2.err = max(k2.err, errs["dq"])
+            k3.err = max(k3.err, errs["dk"], errs["dv"])
+            if dtype == torch.bfloat16:
+                tok = rows * d * 2  # bytes of one token's row of one bf16 operand
+                k2.add(t_k2, t_plain_bwd, t_lib, 6 * rows * sq * skv * d,
+                       tok * (4 * sq + 2 * skv) + 4 * rows * sq)
+                k3.add(t_k3, t_plain_bwd, t_lib, 8 * rows * sq * skv * d,
+                       tok * (3 * sq + 4 * skv) + 4 * rows * sq)
+            del q, k, v, do, o, lse, dq, dk, dv
+            torch.cuda.empty_cache()
+
+
+def check_layer_norm(k4: Totals):
+    """K4 against _ln_math at the edit's LayerNorm shapes, fp32 and bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from fatezero_tpu_torch.ops import fused_norm as FN
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for rows, c in LN_SHAPES:
+        scale = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+        bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (2.0 * torch.randn(rows, c, device="cuda", generator=gen) + 0.5).to(dtype)
+            out = FN.layer_norm_kernel(x, scale, bias, 1e-5)
+            ref = FN._ln_math(x, scale, bias, 1e-5).float()
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            big = ref.abs().max().item()
+            # fp32: sums in another order; bf16: one unit in the last place of
+            # the largest output
+            tol = 1e-5 * max(1.0, big) if dtype == torch.float32 else 2**-7 * big + 1e-5
+            # a K4 call is shorter than its host overhead: device time, not events
+            t_k4 = device_ms(lambda: FN.layer_norm_kernel(x, scale, bias, 1e-5), 20)
+            t_plain = device_ms(lambda: FN._ln_math(x, scale, bias, 1e-5), 20)
+            ws, bs = scale.to(dtype), bias.to(dtype)
+            t_lib = device_ms(lambda: F.layer_norm(x, (c,), ws, bs, 1e-5), 20)
+            log(f"[K4] rows={rows} C={c} {str(dtype):14s} max_abs_err={err:.3e} tol={tol:.3e} "
+                f"k4_ms={t_k4:.4f} plain_ms={t_plain:.4f} layer_norm_ms={t_lib:.4f}")
+            if not err <= tol:
+                raise AssertionError(f"K4 disagrees with _ln_math at {(rows, c)} {dtype}: {err} > {tol}")
+            k4.err = max(k4.err, err)
+            if dtype == torch.bfloat16 and c != 768:
+                k4.add(t_k4, t_plain, t_lib, 8 * rows * c, 2 * 2 * rows * c + 8 * c)
+
+
+def run_slice(device, m, tag, dtype, frames, res, steps, seed=0):
+    """Encode prompts and a seeded clip, invert with capture, edit, decode with
+    the models `m` (load_models' bundle); on the card each stage is a timed
+    phase named after `tag`."""
+    import torch
+
     from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
     from fatezero_tpu_torch.ptp.controller import make_controller
 
-    m = load_models(tag, model_config, dtype=dtype, seed=seed, device=device)
     pipe = FateZeroPipeline(
         m.unet, m.vae, m.text_encoder, m.tokenizer, m.schedule, store_dtype=dtype, device=device
     )
@@ -166,6 +363,89 @@ def run_slice(device, tag, model_config, dtype, frames, res, steps, seed=0):
     return outs, times
 
 
+def tuning_setup(device, tag, model_config, dtype, frames, res, seed, lr):
+    """Models, trainer, a seeded synthetic clip and the prompt's embedding."""
+    import torch
+
+    from fatezero_tpu_torch.models.loader import load_models
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+    from fatezero_tpu_torch.trainer.ddpm_trainer import DDPMTrainer
+
+    m = load_models(tag, model_config, dtype=dtype, seed=seed, device=device)
+    pipe = FateZeroPipeline(m.unet, m.vae, m.text_encoder, m.tokenizer, m.schedule, device=device)
+    gen = torch.Generator().manual_seed(seed)
+    video = (torch.rand(frames, res, res, 3, generator=gen) * 2.0 - 1.0).to(device)
+    emb = pipe.encode_prompt(JEEP_PROMPT)[-1:].clone()  # cond half only, as cli/train.py
+    trainer = DDPMTrainer(m.unet, m.vae, schedule=m.schedule, learning_rate=lr, train_temporal_conv=True)
+    return m, trainer, video, emb
+
+
+def tiny_tuning_reference():
+    """One tuning update at a small size, card against CPU, same host draws."""
+    import torch
+
+    lr = 1e-3
+    runs = {}
+    for device in (torch.device("cuda"), torch.device("cpu")):
+        m, trainer, video, emb = tuning_setup(device, "random:tiny", JEEP, torch.float32, 2, 128, 0, lr)
+        state = trainer.init_state()
+        before = {n: p.detach().clone() for n, p in m.unet.named_parameters()}
+        draws = trainer.draw(torch.Generator().manual_seed(1), video.shape)
+        loss = trainer._update(state, video, emb, draws.to(device))
+        grads = {n: p.grad.detach().float().cpu() for n, p in trainer.trainable.items()}
+        after = {n: p.detach().cpu() for n, p in m.unet.named_parameters()}
+        frozen_moved = [n for n, p in m.unet.named_parameters()
+                        if n not in trainer.trainable and not torch.equal(p.detach(), before[n])]
+        runs[device.type] = dict(loss=float(loss), grads=grads, before={n: p.cpu() for n, p in before.items()},
+                                 after=after, frozen_moved=frozen_moved, trainable=set(trainer.trainable))
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    if gpu["frozen_moved"] or cpu["frozen_moved"]:
+        raise AssertionError(f"frozen params moved: {gpu['frozen_moved'][:3]} {cpu['frozen_moved'][:3]}")
+    # fp32 on both devices; sums in other orders (cuDNN vs CPU convolutions,
+    # K1/K2/K3 vs matmul attention) through the forward, the checkpointed
+    # recompute and the backward
+    loss_err = abs(gpu["loss"] - cpu["loss"])
+    log(f"[tuning reference] loss card {gpu['loss']:.6f} cpu {cpu['loss']:.6f} abs_err {loss_err:.3e} "
+        f"(tol {1e-4 * abs(cpu['loss']):.3e})")
+    if not loss_err <= 1e-4 * abs(cpu["loss"]):
+        raise AssertionError("tiny tuning loss disagrees card vs CPU")
+    worst_g = worst_p = 0.0
+    for n in cpu["trainable"]:
+        g_ref = cpu["grads"][n]
+        g_err = (gpu["grads"][n] - g_ref).abs().max().item() / max(g_ref.abs().max().item(), 1e-12)
+        worst_g = max(worst_g, g_err)
+        # AdamW's first step moves each coordinate by lr * g / (|g| + eps) plus
+        # decay: where a gradient is at its rounding noise the sign may differ,
+        # so a param is held to one full step's difference
+        p_err = (gpu["after"][n] - cpu["after"][n]).abs().max().item()
+        worst_p = max(worst_p, p_err)
+    log(f"[tuning reference] {len(cpu['trainable'])} trainable tensors: worst grad error "
+        f"{worst_g:.3e} of the tensor's max (tol 1e-3), worst param error {worst_p:.3e} (tol {2.1 * lr:.1e})")
+    if not worst_g <= 1e-3 or not worst_p <= 2.1 * lr:
+        raise AssertionError("tiny tuning update disagrees card vs CPU")
+
+
+def count_sites(unet, min_queries, latent):
+    """Attention sites per UNet forward at or above min_queries (self + cross)."""
+    from fatezero_tpu_torch.models.attention import SpatioTemporalTransformerModel
+
+    n = 0
+    res = latent
+    for block in unet.down_blocks:
+        if block.attentions is not None and res * res >= min_queries:
+            n += 2 * len(block.attentions)
+        if hasattr(block, "downsamplers"):
+            res //= 2
+    if res * res >= min_queries:
+        n += 2 * sum(isinstance(m, SpatioTemporalTransformerModel) for m in unet.mid_block.modules())
+    for block in unet.up_blocks:
+        if block.attentions is not None and res * res >= min_queries:
+            n += 2 * len(block.attentions)
+        if hasattr(block, "upsamplers"):
+            res *= 2
+    return n
+
+
 def main() -> int:
     import torch
 
@@ -176,7 +456,9 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"chip_smoke.py needs an sm_90 (Hopper) card, found capability {cap}")
     from fatezero_tpu_torch import csrc
+    from fatezero_tpu_torch.models.loader import load_models
     from fatezero_tpu_torch.ops import flash_attention as FA
+    from fatezero_tpu_torch.ops import fused_norm as FN
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -187,16 +469,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    kernels = [FA.flash_forward, FA.flash_dq, FA.flash_dkv, FN.layer_norm_kernel]
 
-    _, t_build = phase("build K1", lambda: csrc.load("flash_fwd.cu"))
-    (k1_err, k1_ms, k1_plain_ms), _ = phase("K1 vs plain", check_kernels)
+    def reset_counts():
+        for fn in kernels:
+            fn.launches = 0
 
-    # the slice at a small size, through the kernels on the card, against the
+    _, t_build = phase("build K1-K4", lambda: csrc.build_all(KERNEL_SOURCES))
+    k1, k2, k3, k4 = Totals(), Totals(), Totals(), Totals()
+    phase("K1 vs plain (edit sites)", lambda: check_edit_k1(k1))
+    phase("K1+LSE, K2, K3 vs plain autograd (tuning sites)", lambda: check_training_kernels(k2, k3))
+    phase("K4 vs _ln_math", lambda: check_layer_norm(k4))
+
+    # the edit at a small size, through the kernels on the card, against the
     # plain versions on the CPU: same seed, same weights and inputs
     def reference():
-        tiny = dict(model_config=TEASER, dtype=torch.float32, frames=2, res=128, steps=3)
-        gpu, _ = run_slice(device, "random:tiny", **tiny)
-        cpu, _ = run_slice(torch.device("cpu"), "random:tiny", **tiny)
+        tiny = dict(dtype=torch.float32, frames=2, res=128, steps=3)
+        cpu_dev = torch.device("cpu")
+        gpu, _ = run_slice(device, load_models("random:tiny", TEASER, torch.float32, device=device), "random:tiny", **tiny)
+        cpu, _ = run_slice(cpu_dev, load_models("random:tiny", TEASER, torch.float32, device=cpu_dev), "random:tiny", **tiny)
         for key in ("traj", "edited"):
             a, b = gpu[key].float().cpu(), cpu[key].float()
             err = (a - b).abs().max().item()
@@ -211,27 +502,40 @@ def main() -> int:
         if not err <= 1e-3:
             raise AssertionError(f"tiny decoded video disagrees: {err}")
 
-    phase("reference (tiny, card vs CPU)", reference)
+    phase("reference (tiny edit, card vs CPU)", reference)
+    phase("reference (tiny tuning update, card vs CPU)", tiny_tuning_reference)
 
-    # the main path at full width: count K1 launches and watch the plain path
+    # every plain attention call on the card, and every plain call of a
+    # kernel's version on the card, is recorded: the main paths must make none
+    # at 256 queries or more
     plain_queries = []
-    plain = FA.xla_attention
+    originals = {name: getattr(FA, name) for name in ("xla_attention", "attention_with_lse", "flash_bwd_reference")}
 
-    def watched_plain(q, k, v, scale):
-        if q.is_cuda:
-            plain_queries.append(q.shape[-2])
-        return plain(q, k, v, scale)
+    def watch(name):
+        def watched(q, *args):
+            if q.is_cuda:
+                plain_queries.append((name, q.shape[-2]))
+            return originals[name](q, *args)
+        return watched
 
-    FA.xla_attention = watched_plain
+    for name in originals:
+        setattr(FA, name, watch(name))
+
+    def check_plain(path):
+        big = [c for c in plain_queries if c[0] != "xla_attention" or c[1] >= FA.FLASH_MIN_QUERIES]
+        log(f"[{path}] plain attention calls on the card: {len(plain_queries)}, "
+            f"largest query count {max((c[1] for c in plain_queries), default=0)}")
+        if big:
+            raise AssertionError(f"{path}: {len(big)} attention calls of >= 256 queries took a plain path")
+        plain_queries.clear()
+
+    # ---- main path a: the edit
+    sd = load_models("random:sd", TEASER, dtype=torch.bfloat16, seed=0, device=device)
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    FA.flash_attention.launches = 0
-    try:
-        outs, times = run_slice(device, "random:sd", TEASER, torch.bfloat16, FRAMES, RES, STEPS)
-    finally:
-        FA.xla_attention = plain
-    launches = FA.flash_attention.launches
+    outs, times = run_slice(device, sd, "random:sd", torch.bfloat16, FRAMES, RES, STEPS)
+    edit_launches = {fn.__name__: fn.launches for fn in kernels}
     peak = torch.cuda.max_memory_allocated()
-
     lat = RES // 8
     expect = dict(
         emb_src=(2, 77, 768), emb_tgt=(2, 77, 768), latents=(1, FRAMES, lat, lat, 4),
@@ -241,28 +545,129 @@ def main() -> int:
     for key, shape in expect.items():
         val = outs[key]
         finite = bool(torch.isfinite(val).all()) if torch.is_tensor(val) else bool(np.isfinite(val).all())
-        log(f"[slice] {key}: shape {tuple(val.shape)} finite {finite}")
+        log(f"[edit] {key}: shape {tuple(val.shape)} finite {finite}")
         if tuple(val.shape) != shape or not finite:
             raise AssertionError(f"{key}: expected finite {shape}, got {tuple(val.shape)} finite={finite}")
-    log(f"[slice] K1 launches {launches}; plain attention calls on the card: {len(plain_queries)}, "
-        f"largest query count {max(plain_queries, default=0)}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched K1")
-    if any(s >= FA.FLASH_MIN_QUERIES for s in plain_queries):
-        raise AssertionError("an attention site with >= 256 queries took the plain path")
-    log(f"[slice] phase seconds {json.dumps(times)}; peak device memory {peak / 2**30:.2f} GiB; "
-        f"K1 build {t_build:.1f} s")
+    log(f"[edit] launches {json.dumps(edit_launches)}")
+    if edit_launches["flash_forward"] <= 0:
+        raise AssertionError("the edit never launched K1")
+    check_plain("edit")
+    log(f"[edit] phase seconds {json.dumps(times)}; peak device memory {peak / 2**30:.2f} GiB; "
+        f"kernel build {t_build:.1f} s")
+    ref_edited, ref_traj = outs["edited"].float(), outs["traj"].float()
+    emb_src = outs["emb_src"]
+    del outs
 
-    log(json.dumps({"kernels": [{
-        "name": "K1 flash_attention forward",
-        "route": "cuda",
-        "source": "fatezero_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "fatezero_tpu/ops/flash_attention.py:93",
-        "launches": launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": k1_plain_ms,
-    }]}))
+    # ---- main path b: the same edit with LayerNorm through K4
+    def rel_l2(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def with_k4(fn):
+        os.environ["FZ_PALLAS_LN"] = "1"
+        try:
+            return fn()
+        finally:
+            del os.environ["FZ_PALLAS_LN"]
+
+    x0, cond = ref_traj[0], emb_src[-1:]
+    with torch.inference_mode():  # one UNet pass from the same input, both LayerNorms
+        eps_plain = sd.unet(x0, 1, cond)
+        eps_k4 = with_k4(lambda: sd.unet(x0, 1, cond))
+    plain_queries.clear()  # those two passes are no main path
+    reset_counts()
+    ln_outs, ln_times = with_k4(lambda: run_slice(device, sd, "random:sd K4", torch.bfloat16, FRAMES, RES, STEPS))
+    ln_launches = {fn.__name__: fn.launches for fn in kernels}
+    log(f"[edit K4] launches {json.dumps(ln_launches)}")
+    if ln_launches["layer_norm_kernel"] <= 0 or ln_launches["flash_forward"] <= 0:
+        raise AssertionError("the FZ_PALLAS_LN=1 edit did not launch K4 and K1")
+    check_plain("edit K4")
+    # timing in turns (default, K4, K4, default): the two counted runs and
+    # these two, so that warm-up favours neither
+    _, ln_times2 = with_k4(lambda: run_slice(device, sd, "random:sd K4 again", torch.bfloat16, FRAMES, RES, STEPS))
+    _, times2 = run_slice(device, sd, "random:sd again", torch.bfloat16, FRAMES, RES, STEPS)
+    log(f"[edit K4] phase seconds in turns: default {json.dumps(times)}; K4 {json.dumps(ln_times)}; "
+        f"K4 {json.dumps(ln_times2)}; default {json.dumps(times2)}")
+    del sd
+    torch.cuda.empty_cache()
+
+    # The two bf16 LayerNorms differ only where K4's fp32 statistics, summed in
+    # another order, round an output the other way (one bf16 unit); a UNet of
+    # bf16 matmuls and residual adds carries such units on. The bf16 tolerance
+    # is therefore the bf16 edit's own: the same models and inputs in fp32
+    # (weights as drawn, before their bf16 rounding) are the reference, and
+    # the K4 edit must come as close to it as the default bf16 edit: within 25%
+    # for one UNet pass, within 2x after the 20 passes of invert and edit.
+    # Random weights amplify those units from pass to pass, so the default
+    # edit's own distance to fp32 spreads by up to 1.5x between runs of the
+    # same code (the stub tokenizer's salted hash changes the prompts' tokens),
+    # and two equally accurate edits can read that far apart in one run; a
+    # wrong LayerNorm already shows in the single pass.
+    sd32 = load_models("random:sd", TEASER, dtype=torch.float32, seed=0, device=device)
+    with torch.inference_mode():
+        eps32 = sd32.unet(x0.float(), 1, cond.float())
+    ref32, _ = run_slice(device, sd32, "random:sd fp32", torch.float32, FRAMES, RES, STEPS)
+    del sd32
+    plain_queries.clear()  # the reference is no main path
+    checks = [("one UNet pass eps", eps_k4, eps_plain, eps32, 1.25),
+              ("inverted latent", ln_outs["traj"][-1], ref_traj[-1], ref32["traj"][-1], 2.0),
+              ("edited latent", ln_outs["edited"], ref_edited, ref32["edited"], 2.0)]
+    log("[edit K4] inversion trajectory, rel_l2 per step: K4 vs default "
+        + " ".join(f"{rel_l2(ln_outs['traj'][i], ref_traj[i]):.2e}" for i in range(STEPS + 1))
+        + "; default vs fp32 " + " ".join(f"{rel_l2(ref_traj[i], ref32['traj'][i]):.2e}" for i in range(STEPS + 1)))
+    for name, got, plain, ref, factor in checks:
+        e_k4, e_plain = rel_l2(got, ref), rel_l2(plain, ref)
+        log(f"[edit K4] {name}: rel_l2 to fp32, K4 {e_k4:.3e} default {e_plain:.3e} (tol {factor * e_plain:.3e}); "
+            f"K4 vs default {rel_l2(got, plain):.3e}")
+        if not (torch.isfinite(got).all() and e_k4 <= factor * e_plain):
+            raise AssertionError(f"the FZ_PALLAS_LN=1 edit is less accurate than the default edit at {name}")
+    del ln_outs, ref_edited, ref_traj, ref32, eps_plain, eps_k4, eps32
+    torch.cuda.empty_cache()
+
+    # ---- main path c: one-shot tuning at full width
+    m, trainer, video, emb = tuning_setup(device, "random:sd", JEEP, torch.bfloat16, FRAMES, RES, TUNE_SEED, TUNE_LR)
+    state = trainer.init_state()
+    frozen = {n: p.detach().clone() for n, p in m.unet.named_parameters() if n not in trainer.trainable}
+    start = {n: p.detach().clone() for n, p in trainer.trainable.items()}
+    gen = torch.Generator().manual_seed(TUNE_SEED)
+    sites = count_sites(m.unet, FA.FLASH_MIN_QUERIES, lat)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for i in range(TUNE_STEPS):
+        (state, loss), dt = phase(f"tuning step {i}", lambda: trainer.step(state, video, emb, gen))
+        losses.append(float(loss))
+        step_s.append(dt)
+    tune_launches = {fn.__name__: fn.launches for fn in kernels}
+    tune_peak = torch.cuda.max_memory_allocated()
+    log(f"[tuning] losses {losses}; seconds per step {step_s}; peak device memory {tune_peak / 2**30:.2f} GiB")
+    log(f"[tuning] launches {json.dumps(tune_launches)}; {sites} attention sites with >= 256 queries per forward")
+    check_plain("tuning")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite tuning loss: {losses}")
+    expected = dict(flash_forward=2 * sites * TUNE_STEPS, flash_dq=sites * TUNE_STEPS, flash_dkv=sites * TUNE_STEPS)
+    for name, n in expected.items():
+        if tune_launches[name] != n:
+            raise AssertionError(f"tuning launched {name} {tune_launches[name]} times, expected {n}")
+    moved_frozen = [n for n, p in m.unet.named_parameters() if n in frozen and not torch.equal(p.detach(), frozen[n])]
+    moved = [n for n, p in trainer.trainable.items() if not torch.equal(p.detach(), start[n])]
+    log(f"[tuning] trainable tensors moved {len(moved)} of {len(start)}; frozen tensors moved "
+        f"{len(moved_frozen)} of {len(frozen)}")
+    if moved_frozen or not moved:
+        raise AssertionError("tuning moved a frozen param or no trainable one")
+    del m, trainer, state, frozen, start
+    for name, fn in originals.items():
+        setattr(FA, name, fn)
+
+    log(json.dumps({"kernels": [
+        k1.entry("K1 flash_attention forward", "fatezero_tpu_torch/csrc/flash_fwd.cu",
+                 "fatezero_tpu/ops/flash_attention.py:93", edit_launches["flash_forward"]),
+        k2.entry("K2 flash_attention backward dQ", "fatezero_tpu_torch/csrc/flash_bwd.cu",
+                 "fatezero_tpu/ops/flash_attention.py:185", tune_launches["flash_dq"]),
+        k3.entry("K3 flash_attention backward dK/dV", "fatezero_tpu_torch/csrc/flash_bwd.cu",
+                 "fatezero_tpu/ops/flash_attention.py:220", tune_launches["flash_dkv"]),
+        k4.entry("K4 layer_norm", "fatezero_tpu_torch/csrc/layer_norm.cu",
+                 "fatezero_tpu/ops/fused_norm.py:47", ln_launches["layer_norm_kernel"]),
+    ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

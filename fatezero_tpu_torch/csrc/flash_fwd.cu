@@ -9,7 +9,11 @@
 //
 // Layout: q [rows, Sq, d], k [rows, Skv, d], v [rows, Skv, dv], o [rows, Sq, dv],
 // all contiguous, fp32 or bf16 (o has the input dtype). d <= 160, dv <= 320
-// (dv = 2d is the value-space edit's double-wide V).
+// (dv = 2d is the value-space edit's double-wide V). Under differentiation the
+// kernel also writes the fp32 log-sum-exp of each query row, lse [rows, Sq]
+// (m + log l of the online softmax), which the backward kernels K2 and K3
+// (flash_bwd.cu) read; inference passes a null lse and writes none. The TPU
+// kernel's 128-lane broadcast of the LSE is a TPU layout and is not carried over.
 //
 // What bounds it on the H100: at the 64x64-latent self sites (Sq = Skv = 4096,
 // d = 40) the work is 4*Sq*Skv*d FLOPs per row against 2*(Sq+Skv)*d elements
@@ -33,14 +37,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using fz::NEG_INF;
 
 constexpr int BQ = 32;                     // queries per block
 constexpr int BK = 64;                     // keys per KV tile
 constexpr int ROW_LANES = 8;               // threads per query row
 constexpr int THREADS = BQ * ROW_LANES;    // 256
 constexpr int KEYS_PER_LANE = BK / ROW_LANES;
-constexpr float NEG_INF = -1e30f;          // as the TPU kernel: no inf - inf NaNs
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -51,7 +58,8 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __fl
 template <typename T, int NCOL>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int sq, int skv, int d, int dv, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int sq, int skv, int d, int dv,
+                 float scale) {
   extern __shared__ float smem[];
   const int ds = d + 1;
   float* qs = smem;              // [BQ][ds], pre-scaled
@@ -155,6 +163,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int col = lane + c * ROW_LANES;
       if (col < dv) store_out(orow + col, acc[c] / l);
     }
+    if (lse != nullptr && lane == 0) lse[(size_t)row * sq + qi] = m + logf(l);
   }
 }
 
@@ -179,37 +188,15 @@ constexpr int MMA_BQ = 64;
 constexpr int MMA_BK = 64;
 constexpr int MMA_THREADS = 128;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (a, b) -> bf16 pairs hi and lo with hi + lo = (a, b) to ~16 mantissa bits
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat16 ha = __float2bfloat16(a), hb = __float2bfloat16(b);
-  hi = pack_bf16(__bfloat162float(ha), __bfloat162float(hb));
-  lo = pack_bf16(a - __bfloat162float(ha), b - __bfloat162float(hb));
-}
+using fz::ld_pair;
+using fz::mma_bf16;
 
 // DK: 16-wide k-steps of the head dim (d <= 16*DK); DVN: 8-wide n-tiles of V (dv <= 8*DVN)
 template <int DK, int DVN>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int sq,
-                     int skv, int d, int dv, float scale) {
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int sq, int skv, int d, int dv, float scale) {
   constexpr int DP = DK * 16;
   constexpr int QS = DP + 8;       // row stride of the Q and K tiles
   constexpr int DVP = DVN * 8;
@@ -242,12 +229,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   uint32_t qa[DK][4];
   const __nv_bfloat16* qw = qs + warp * 16 * QS;
 #pragma unroll
-  for (int kk = 0; kk < DK; ++kk) {
-    qa[kk][0] = ld_pair(qw + g * QS + kk * 16 + 2 * t);
-    qa[kk][1] = ld_pair(qw + (g + 8) * QS + kk * 16 + 2 * t);
-    qa[kk][2] = ld_pair(qw + g * QS + kk * 16 + 8 + 2 * t);
-    qa[kk][3] = ld_pair(qw + (g + 8) * QS + kk * 16 + 8 + 2 * t);
-  }
+  for (int kk = 0; kk < DK; ++kk) fz::load_a(qa[kk], qw, QS, kk, g, t);
 
   float oacc[DVN][4];
 #pragma unroll
@@ -331,10 +313,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       // A operand from the score accumulators of key columns 16kk..16kk+15:
       // rows g / g+8 of n-tile 2kk, then of n-tile 2kk+1
       uint32_t hi[4], lo[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+      fz::split_a(hi, lo, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < DVN; ++n) {
         const __nv_bfloat16* vr = vt + (8 * n + g) * VS + kk * 16 + 2 * t;
@@ -357,11 +336,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       if (r1 < sq) o[((size_t)row * sq + r1) * dv + col + e] = __float2bfloat16(oacc[n][2 + e] * inv1);
     }
   }
+  if (lse != nullptr && t == 0) {
+    if (r0 < sq) lse[(size_t)row * sq + r0] = m0 + logf(l0);
+    if (r1 < sq) lse[(size_t)row * sq + r1] = m1 + logf(l1);
+  }
 }
 
 template <int DK, int DVN>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int rows, int sq,
-                       int skv, int d, int dv, float scale, cudaStream_t stream) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int rows,
+                       int sq, int skv, int d, int dv, float scale, cudaStream_t stream) {
   constexpr int QS = DK * 16 + 8;
   const size_t smem = ((size_t)(MMA_BQ + MMA_BK) * QS + (size_t)DVN * 8 * (MMA_BK + 8)) *
                       sizeof(__nv_bfloat16);
@@ -372,23 +355,24 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid((sq + MMA_BQ - 1) / MMA_BQ, rows);
   kernel<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, skv, d, dv, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, skv, d, dv,
+      scale);
   return cudaGetLastError();
 }
 
 template <int DK>
-cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o, int rows, int sq,
-                         int skv, int d, int dv, float scale, cudaStream_t stream) {
-  if (dv <= 40) return launch_mma<DK, 5>(q, k, v, o, rows, sq, skv, d, dv, scale, stream);
-  if (dv <= 80) return launch_mma<DK, 10>(q, k, v, o, rows, sq, skv, d, dv, scale, stream);
-  return launch_mma<DK, 20>(q, k, v, o, rows, sq, skv, d, dv, scale, stream);
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int rows,
+                         int sq, int skv, int d, int dv, float scale, cudaStream_t stream) {
+  if (dv <= 40) return launch_mma<DK, 5>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, stream);
+  if (dv <= 80) return launch_mma<DK, 10>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, stream);
+  return launch_mma<DK, 20>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, stream);
 }
 
 // ---------------------------------------------------------------- launchers
 
 template <typename T, int NCOL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int rows, int sq,
-                   int skv, int d, int dv, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int rows,
+                   int sq, int skv, int d, int dv, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)(BQ * (d + 1) + BK * (d + 1) + BK * dv + BQ * BK) * sizeof(float);
   auto kernel = flash_fwd_kernel<T, NCOL>;
   cudaError_t err =
@@ -396,36 +380,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int row
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + BQ - 1) / BQ, rows);
   kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                          static_cast<const T*>(v), static_cast<T*>(o), sq, skv,
-                                          d, dv, scale);
+                                          static_cast<const T*>(v), static_cast<T*>(o), lse, sq,
+                                          skv, d, dv, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int rows, int sq,
-                     int skv, int d, int dv, float scale, cudaStream_t stream) {
-  if (dv <= 8 * 5) return launch<T, 5>(q, k, v, o, rows, sq, skv, d, dv, scale, stream);
-  if (dv <= 8 * 10) return launch<T, 10>(q, k, v, o, rows, sq, skv, d, dv, scale, stream);
-  if (dv <= 8 * 20) return launch<T, 20>(q, k, v, o, rows, sq, skv, d, dv, scale, stream);
-  return launch<T, 40>(q, k, v, o, rows, sq, skv, d, dv, scale, stream);
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int rows,
+                     int sq, int skv, int d, int dv, float scale, cudaStream_t stream) {
+  if (dv <= 8 * 5) return launch<T, 5>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, stream);
+  if (dv <= 8 * 10) return launch<T, 10>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, stream);
+  if (dv <= 8 * 20) return launch<T, 20>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, stream);
+  return launch<T, 40>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() of the launch (0 on success). dtype: 0 fp32, 1 bf16.
-extern "C" int fz_flash_fwd(const void* q, const void* k, const void* v, void* o, int rows,
-                            int sq, int skv, int d, int dv, float scale, int dtype,
+// lse may be null (inference); else it receives [rows, sq] fp32 log-sum-exps.
+extern "C" int fz_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                            int rows, int sq, int skv, int d, int dv, float scale, int dtype,
                             void* stream) {
   if (rows < 1 || rows > 65535 || sq < 1 || skv < 1 || d < 1 || d > 160 || dv < 1 || dv > 320)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && dv <= 160) {
-    if (d <= 48) return (int)dispatch_mma<3>(q, k, v, o, rows, sq, skv, d, dv, scale, s);
-    if (d <= 80) return (int)dispatch_mma<5>(q, k, v, o, rows, sq, skv, d, dv, scale, s);
-    return (int)dispatch_mma<10>(q, k, v, o, rows, sq, skv, d, dv, scale, s);
+    if (d <= 48) return (int)dispatch_mma<3>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, s);
+    if (d <= 80) return (int)dispatch_mma<5>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, s);
+    return (int)dispatch_mma<10>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, s);
   }
   cudaError_t err = dtype == 1
-      ? dispatch<__nv_bfloat16>(q, k, v, o, rows, sq, skv, d, dv, scale, s)
-      : dispatch<float>(q, k, v, o, rows, sq, skv, d, dv, scale, s);
+      ? dispatch<__nv_bfloat16>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, s)
+      : dispatch<float>(q, k, v, o, lse, rows, sq, skv, d, dv, scale, s);
   return (int)err;
 }

@@ -1,0 +1,62 @@
+// bf16 tensor-core helpers shared by the flash-attention kernels (K1, K2, K3).
+//
+// mma.sync m16n8k16, bf16 in, fp32 accumulate. Fragment layouts (lane = 4g + t):
+//   A (16x16, row): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..)
+//   B (16x8, col):  b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
+//   C (16x8):       c0..c1 = (g, 2t..2t+1), c2..c3 = (g+8, 2t..2t+1)
+// so the accumulators of two neighbouring n-tiles are the A operand of the next
+// product without any shuffle (the FlashAttention-2 register layout).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace fz {
+
+constexpr float NEG_INF = -1e30f;  // as the TPU kernels: no inf - inf NaNs
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) -> bf16 pairs hi and lo with hi + lo = (a, b) to ~16 mantissa bits
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat16 ha = __float2bfloat16(a), hb = __float2bfloat16(b);
+  hi = pack_bf16(__bfloat162float(ha), __bfloat162float(hb));
+  lo = pack_bf16(a - __bfloat162float(ha), b - __bfloat162float(hb));
+}
+
+// A fragment of k-step kk from a row-major bf16 tile (16 rows from `tile`, row stride `ld`)
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld, int kk,
+                                       int g, int t) {
+  a[0] = ld_pair(tile + g * ld + kk * 16 + 2 * t);
+  a[1] = ld_pair(tile + (g + 8) * ld + kk * 16 + 2 * t);
+  a[2] = ld_pair(tile + g * ld + kk * 16 + 8 + 2 * t);
+  a[3] = ld_pair(tile + (g + 8) * ld + kk * 16 + 8 + 2 * t);
+}
+
+// A operand (k-step kk of 16 columns) from fp32 accumulators c[2kk], c[2kk+1],
+// split into hi and lo bf16 terms
+__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4], const float (&c0)[4],
+                                        const float (&c1)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+}  // namespace fz

@@ -7,12 +7,13 @@ stay fp32 and the norms compute fp32 statistics (ops/fused_norm.py).
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fatezero_tpu_torch.ops.fused_norm import _ln_math, group_norm
+from fatezero_tpu_torch.ops.fused_norm import _ln_math, group_norm, layer_norm
 
 
 def get_timestep_embedding(
@@ -79,7 +80,11 @@ class FeedForward(nn.Module):
 
 class FusedLayerNorm(nn.Module):
     """LayerNorm over the last axis with fp32 E[x^2]-E[x]^2 statistics
-    (eps 1e-5, torch nn.LayerNorm's default); output in the model dtype."""
+    (eps 1e-5, torch nn.LayerNorm's default); output in the model dtype.
+
+    As in the JAX package, FZ_PALLAS_LN=1 (read at each call) routes it
+    through the LayerNorm kernel K4 (ops/fused_norm.py::layer_norm); the
+    default is the plain math."""
 
     def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.float32, device=None):
         super().__init__()
@@ -89,6 +94,8 @@ class FusedLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if os.environ.get("FZ_PALLAS_LN"):
+            return layer_norm(x, self.weight, self.bias, self.eps).to(self.dtype)
         return _ln_math(x, self.weight, self.bias, self.eps).to(self.dtype)
 
 

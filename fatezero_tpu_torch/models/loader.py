@@ -49,7 +49,7 @@ def _unet_cfg_overrides(model_config: dict) -> dict:
     if model_config.get("lora"):
         out["lora"] = int(model_config["lora"])
     if model_config.get("gradient_checkpointing"):
-        raise NotImplementedError("gradient checkpointing belongs to tuning, which is not ported yet")
+        out["gradient_checkpointing"] = True
     return out
 
 
@@ -81,7 +81,8 @@ def random_state(module: nn.Module, seed: int) -> dict:
 def load_state(module: nn.Module, state: dict, device) -> nn.Module:
     """Load a {key: numpy array} state_dict into `module` on `device`, keeping
     each parameter's own dtype (model dtype, fp32 for norms). Works for a
-    module built on the meta device."""
+    module built on the meta device. The module owns its storage: the arrays
+    are copied, never shared."""
     own = module.state_dict()
     missing = set(own) - set(state)
     extra = set(state) - set(own)
@@ -92,7 +93,8 @@ def load_state(module: nn.Module, state: dict, device) -> nn.Module:
         v = torch.from_numpy(np.ascontiguousarray(state[k]))
         if tuple(v.shape) != tuple(ref.shape):
             raise ValueError(f"shape mismatch at {k}: {tuple(v.shape)} vs {tuple(ref.shape)}")
-        tensors[k] = v.to(device=device, dtype=ref.dtype)
+        # a copy, so that training in place never writes into the caller's arrays
+        tensors[k] = v.to(device=device, dtype=ref.dtype, copy=True)
     module.load_state_dict(tensors, assign=True)
     return module
 
@@ -102,9 +104,10 @@ def load_models(
     model_config: Optional[dict] = None,
     dtype=torch.float32,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
 ) -> SimpleNamespace:
-    """Build (unet, vae, text_encoder, tokenizer, schedule) for `random:tiny` or `random:sd`."""
+    """Build (unet, vae, text_encoder, tokenizer, schedule) for `random:tiny` or `random:sd`
+    on `device` (the card unless the caller asks for the CPU)."""
     if not pretrained_model_path.startswith("random:"):
         raise NotImplementedError(
             "only the random:tiny and random:sd builders are ported; checkpoint loading is not"

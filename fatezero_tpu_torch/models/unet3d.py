@@ -6,7 +6,11 @@ temporal attention, with SparseCausalAttention in place of spatial
 self-attention. Parameter names follow diffusers/FateZero
 (down_blocks.0.resnets.0.conv1.weight, ...). The attention controller is
 passed to ``forward`` and visits the controlled sites in the same order as
-the JAX model (down, mid, up), so capture positions line up.
+the JAX model (down, mid, up), so capture positions line up. With
+``gradient_checkpointing`` (tuning) each down, mid and up block runs under
+``torch.utils.checkpoint`` (non-reentrant), as the JAX model wraps them in
+``nn.remat``: their activations are recomputed in the backward pass instead
+of kept. As there, only when no attention controller is attached.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fatezero_tpu_torch.models.attention import SpatioTemporalTransformerModel
 from fatezero_tpu_torch.models.layers import FusedGroupNorm, TimestepEmbedding, get_timestep_embedding
@@ -60,6 +65,9 @@ class UNet3DConfig:
     temporal_downsample_time: int = 0
     lora: Optional[int] = None
     temporal_attention: bool = True
+    # tuning-time recomputation of each down/mid/up block (reference
+    # unet_3d_blocks.py:308-326); off while a controller records maps
+    gradient_checkpointing: bool = False
 
     def block_sparse_indices(self, dim: int):
         """Frame-local self-attention (no gather) below least_sc_channel."""
@@ -175,29 +183,52 @@ class UNetPseudo3DConditionModel(nn.Module):
         context = encoder_hidden_states.to(self.dtype)
 
         x = self.conv_in(sample.to(self.dtype))
+        remat = cfg.gradient_checkpointing and attn_ctx is None and torch.is_grad_enabled()
+
+        def run(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
         res_stack = [x]
         for block in self.down_blocks:
-            for j, resnet in enumerate(block.resnets):
-                x = resnet(x, temb)
-                if block.attentions is not None:
-                    x = block.attentions[j](x, context, attn_ctx=attn_ctx, place="down")
-                res_stack.append(x)
-            if hasattr(block, "downsamplers"):
-                x = block.downsamplers[0](x)
-                res_stack.append(x)
-
-        mid = self.mid_block
-        x = mid.resnets[0](x, temb)
-        x = mid.attentions[0](x, context, attn_ctx=attn_ctx, place="mid")
-        x = mid.resnets[1](x, temb)
-
+            x, res = run(self._down, block, x, temb, context, attn_ctx)
+            res_stack.extend(res)
+        x = run(self._mid, x, temb, context, attn_ctx)
         for block in self.up_blocks:
-            for j, resnet in enumerate(block.resnets):
-                x = resnet(torch.cat([x, res_stack.pop()], dim=-1), temb)
-                if block.attentions is not None:
-                    x = block.attentions[j](x, context, attn_ctx=attn_ctx, place="up")
-            if hasattr(block, "upsamplers"):
-                x = block.upsamplers[0](x)
+            n = len(block.resnets)
+            skips = res_stack[-n:][::-1]
+            del res_stack[-n:]
+            x = run(self._up, block, x, skips, temb, context, attn_ctx)
 
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return x.float()
+
+    @staticmethod
+    def _down(block, x, temb, context, attn_ctx):
+        """One down block; returns its output and the residuals it pushes."""
+        res = []
+        for j, resnet in enumerate(block.resnets):
+            x = resnet(x, temb)
+            if block.attentions is not None:
+                x = block.attentions[j](x, context, attn_ctx=attn_ctx, place="down")
+            res.append(x)
+        if hasattr(block, "downsamplers"):
+            x = block.downsamplers[0](x)
+            res.append(x)
+        return x, res
+
+    def _mid(self, x, temb, context, attn_ctx):
+        mid = self.mid_block
+        x = mid.resnets[0](x, temb)
+        x = mid.attentions[0](x, context, attn_ctx=attn_ctx, place="mid")
+        return mid.resnets[1](x, temb)
+
+    @staticmethod
+    def _up(block, x, skips, temb, context, attn_ctx):
+        """One up block; `skips` are the residuals it pops, in pop order."""
+        for j, resnet in enumerate(block.resnets):
+            x = resnet(torch.cat([x, skips[j]], dim=-1), temb)
+            if block.attentions is not None:
+                x = block.attentions[j](x, context, attn_ctx=attn_ctx, place="up")
+        if hasattr(block, "upsamplers"):
+            x = block.upsamplers[0](x)
+        return x

@@ -1,21 +1,28 @@
-"""Flash-attention forward (K1) for the large, never-edited attention maps.
+"""Flash attention (K1 forward, K2/K3 backward) for the large, never-edited maps.
 
 Counterpart of fatezero_tpu/ops/flash_attention.py. Every attention site with
 at least 256 query tokens that is not materialised runs here: the 64x64
 self- and cross-attention sites, and the value-space self swap and cross edit
-at the 32x32 and 16x16 sites (including their double-wide V).
+at the 32x32 and 16x16 sites (including their double-wide V); under tuning,
+the same sites carry gradients.
 
-* ``flash_attention`` launches the hand-written CUDA kernel
-  (csrc/flash_fwd.cu) on a CUDA tensor; on a CPU tensor it computes the same
-  function with its plain version, ``xla_attention``.
+* ``flash_attention`` is differentiable: the JAX package's ``custom_vjp``
+  becomes ``FlashAttention``, a ``torch.autograd.Function`` whose forward
+  also keeps the fp32 log-sum-exp and whose backward recomputes the
+  probabilities from it. Without gradients it runs the forward alone.
+* On a CUDA tensor each step launches a hand-written kernel or raises:
+  ``flash_forward`` K1 (csrc/flash_fwd.cu), ``flash_dq`` K2 and
+  ``flash_dkv`` K3 (csrc/flash_bwd.cu). Each counts its launches in
+  ``.launches``. On a CPU tensor they compute the same function with the
+  plain versions, ``attention_with_lse`` and ``flash_bwd_reference``.
 * ``fused_attention`` is the dispatch rule of the JAX package: 256 queries or
   more go to ``flash_attention``; fewer go to the plain math on any device.
-
-Only the forward is ported; the backward kernels (K2/K3) wait for tuning.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,27 +45,70 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def _library() -> ctypes.CDLL:
-    lib = csrc.load("flash_fwd.cu")
-    fn = lib.fz_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float,
-        ctypes.c_int,
-        ctypes.c_void_p,
-    ]
+def attention_with_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1 under differentiation: (o in q's dtype, fp32 lse [B, Sq])."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.matmul(torch.exp(s - lse[..., None]), v.float())
+    return o.to(q.dtype), lse
+
+
+def flash_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K2 and K3: the `_dq_kernel`/`_dkv_kernel` formulas in fp32.
+
+    P = exp(scale q k^T - lse); delta = rowsum(dO o O); dS = P o (dO v^T - delta);
+    dq = scale dS k, dk = scale dS^T q, dv = P^T dO. Each gradient has its
+    input's dtype.
+    """
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.cache
+def _fwd_fn():
+    fn = csrc.load("flash_fwd.cu").fz_flash_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+@functools.cache
+def _bwd_fn(name: str):
+    fn = getattr(csrc.load("flash_bwd.cu"), name)
+    pointers = 7 if name == "fz_flash_bwd_dq" else 8
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor) -> None:
+    """Raise on what the kernels do not take. `more` are further [B, Sq, d]-like
+    tensors (o, dO) that must share q's device, dtype and contiguity."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"flash_attention takes [B, S, D] tensors, got {q.shape}, {k.shape}, {v.shape}")
-    if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k and v must lie on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes fp32 or bf16 q/k/v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention takes contiguous q, k and v")
+    ts = (q, k, v, *more)
+    if not all(t.is_cuda and t.device == q.device for t in ts):
+        raise ValueError("flash_attention: every operand must lie on one CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"flash_attention takes fp32 or bf16 operands of one dtype, got {[t.dtype for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash_attention takes contiguous operands")
     b, _, d = q.shape
     if k.shape[0] != b or v.shape[0] != b or k.shape[2] != d or v.shape[1] != k.shape[1]:
         raise ValueError(f"flash_attention shape mismatch: q {q.shape}, k {k.shape}, v {v.shape}")
@@ -68,33 +118,129 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention supports 1..65535 folded rows, got {b}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale) v without materialising scores.
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
-    q: [B, Sq, d]; k: [B, Skv, d]; v: [B, Skv, dv] (B folds batch*frames*heads).
+
+def flash_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool = False
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1: (o [B, Sq, dv] in q's dtype, fp32 lse [B, Sq] or None).
+
     On a CUDA tensor this launches K1 or raises; a CPU tensor takes the plain
-    version. Returns [B, Sq, dv] in q's dtype.
+    version. The log-sum-exp is written only when asked for (differentiation).
     """
     if not q.is_cuda:
-        return xla_attention(q, k, v, scale)
+        if with_lse:
+            return attention_with_lse(q, k, v, scale)
+        return xla_attention(q, k, v, scale), None
     _check(q, k, v)
-    fn = _library().fz_flash_fwd
+    fn = _fwd_fn()
     b, sq, d = q.shape
     skv, dv = k.shape[1], v.shape[2]
     out = torch.empty((b, sq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, sq), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, skv, d, dv, float(scale), _DTYPES[q.dtype], stream,
+            lse.data_ptr() if lse is not None else None,
+            b, sq, skv, d, dv, float(scale), _DTYPES[q.dtype], _stream(q),
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
-    flash_attention.launches += 1
-    return out
+    flash_forward.launches += 1
+    return out, lse
 
 
-flash_attention.launches = 0
+def _no_wide_v(q: torch.Tensor, v: torch.Tensor) -> None:
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            "flash_attention backward requires matching q/v head dims; the "
+            "wide-V forward (value-space edit) is an inference-only path"
+        )
+
+
+def _check_bwd(q, k, v, o, lse, do) -> None:
+    _check(q, k, v, o, do)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash backward: o {o.shape} and dO {do.shape} must match q {q.shape}")
+    if lse.shape != q.shape[:2] or lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"flash backward takes a contiguous fp32 lse {tuple(q.shape[:2])} on q's device")
+
+
+def flash_dq(q, k, v, o, lse, do, scale: float) -> torch.Tensor:
+    """K2: dq [B, Sq, d] in q's dtype. A CUDA tensor launches K2 or raises."""
+    _no_wide_v(q, v)
+    if not q.is_cuda:
+        return flash_bwd_reference(q, k, v, o, lse, do, scale)[0]
+    _check_bwd(q, k, v, o, lse, do)
+    b, sq, d = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _bwd_fn("fz_flash_bwd_dq")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), b, sq, k.shape[1], d, float(scale), _DTYPES[q.dtype], _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd dq launch failed with CUDA error {err}")
+    flash_dq.launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, o, lse, do, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: (dk, dv) [B, Skv, d] in k's dtype. A CUDA tensor launches K3 or raises."""
+    _no_wide_v(q, v)
+    if not q.is_cuda:
+        return flash_bwd_reference(q, k, v, o, lse, do, scale)[1:]
+    _check_bwd(q, k, v, o, lse, do)
+    b, sq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _bwd_fn("fz_flash_bwd_dkv")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], d, float(scale), _DTYPES[q.dtype],
+            _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd dkv launch failed with CUDA error {err}")
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_forward.launches = 0
+flash_dq.launches = 0
+flash_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q k^T * scale) v with the flash backward (JAX `_flash` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_forward(q, k, v, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq = flash_dq(q, k, v, o, lse, do, ctx.scale)
+        dk, dv = flash_dkv(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v without materialising scores; differentiable.
+
+    q: [B, Sq, d]; k: [B, Skv, d]; v: [B, Skv, dv] (B folds batch*frames*heads).
+    Returns [B, Sq, dv] in q's dtype. Under autograd the result carries the
+    flash backward (K2/K3 on the card); otherwise the forward runs alone.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale)
+    return flash_forward(q, k, v, scale)[0]
 
 
 def _fold_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -120,9 +266,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     """Dispatch: K1 for 256 queries or more, plain math below.
 
     q: [..., S, D]; k/v: [..., KV, D|Dv] with leading dims broadcastable
-    against q's. With 256 queries or more, a CUDA tensor runs K1 and a CPU
-    tensor its plain version; fewer queries take the plain math on either
-    device, as in the JAX package.
+    against q's. With 256 queries or more, a CUDA tensor runs K1 (and K2/K3
+    under autograd) and a CPU tensor their plain versions; fewer queries take
+    the plain math on either device, as in the JAX package.
     """
     if q.shape[-2] >= FLASH_MIN_QUERIES:
         return _fold_flash(q, k, v, scale)

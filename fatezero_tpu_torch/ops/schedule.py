@@ -39,7 +39,7 @@ def make_schedule(
     set_alpha_to_one: bool = False,
     prediction_type: str = "epsilon",
     clip_sample: bool = False,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> DiffusionSchedule:
     if beta_schedule == "linear":
         betas = np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
@@ -151,6 +151,48 @@ def ddim_invert_step(
     """One exact-inversion step: latent at t - T/S -> latent at t (the target level)."""
     t_from = timestep - schedule.num_train_timesteps // num_inference_steps
     return ddim_transfer(schedule, model_output, t_from, timestep, sample)
+
+
+def add_noise(
+    schedule: DiffusionSchedule, sample: torch.Tensor, noise: torch.Tensor, t: Timestep
+) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) (diffusers `add_noise`). t broadcasts over batch."""
+    alpha = _bcast(_alpha_at(schedule, t).to(sample.dtype), sample)
+    return alpha.sqrt() * sample + (1.0 - alpha).sqrt() * noise
+
+
+def get_velocity(
+    schedule: DiffusionSchedule, sample: torch.Tensor, noise: torch.Tensor, t: Timestep
+) -> torch.Tensor:
+    """v-prediction target: v = sqrt(a) eps - sqrt(1-a) x0 (diffusers `get_velocity`)."""
+    alpha = _bcast(_alpha_at(schedule, t).to(sample.dtype), sample)
+    return alpha.sqrt() * noise - (1.0 - alpha).sqrt() * sample
+
+
+def ddpm_step(
+    schedule: DiffusionSchedule,
+    model_output: torch.Tensor,
+    timestep: Timestep,
+    sample: torch.Tensor,
+    noise: torch.Tensor,
+) -> torch.Tensor:
+    """One ancestral DDPM step (variance type: fixed_small), for sampling parity."""
+    t = torch.as_tensor(timestep, device=schedule.betas.device)
+    alpha_prod_t = _alpha_at(schedule, t)
+    # diffusers DDPMScheduler uses `one` (exactly 1.0) for the t-1 < 0
+    # boundary, unlike DDIM's final_alpha_cumprod
+    one = torch.ones((), device=t.device)
+    alpha_prod_prev = torch.where(t > 0, _alpha_at(schedule, t - 1), one)
+    beta_t = schedule.betas[t.clamp(0, schedule.num_train_timesteps - 1).long()]
+    alpha_t = 1.0 - beta_t
+    x0, _ = pred_original_sample(schedule, model_output, t, sample)
+    # mu(x_t, x0) coefficients, Ho et al. eq. 7
+    coef_x0 = alpha_prod_prev.sqrt() * beta_t / (1.0 - alpha_prod_t)
+    coef_xt = alpha_t.sqrt() * (1.0 - alpha_prod_prev) / (1.0 - alpha_prod_t)
+    mean = coef_x0 * x0 + coef_xt * sample
+    var = beta_t * (1.0 - alpha_prod_prev) / (1.0 - alpha_prod_t)
+    sigma = var.clamp(min=1e-20).sqrt()
+    return mean + torch.where(t > 0, sigma, torch.zeros_like(sigma)) * noise
 
 
 def classifier_free_guidance(

@@ -70,7 +70,7 @@ class FateZeroPipeline:
         tokenizer,
         schedule: Optional[S.DiffusionSchedule] = None,
         store_dtype=torch.bfloat16,
-        device="cpu",
+        device="cuda",
     ):
         self.device = torch.device(device)
         self.unet = unet

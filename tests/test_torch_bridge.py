@@ -93,8 +93,8 @@ def test_imports_without_jax():
 
 
 def test_random_tiny_follows_init_rules():
-    m = load_models("random:tiny", {"lora": 160, "SparseCausalAttention_index": ["mid"]}, seed=0)
-    again = load_models("random:tiny", {"lora": 160, "SparseCausalAttention_index": ["mid"]}, seed=0)
+    m = load_models("random:tiny", {"lora": 160, "SparseCausalAttention_index": ["mid"]}, seed=0, device="cpu")
+    again = load_models("random:tiny", {"lora": 160, "SparseCausalAttention_index": ["mid"]}, seed=0, device="cpu")
     state, state2 = m.unet.state_dict(), again.unet.state_dict()
     for k, v in state.items():
         torch.testing.assert_close(v, state2[k], atol=0, rtol=0)
@@ -104,7 +104,29 @@ def test_random_tiny_follows_init_rules():
             assert torch.all(v == 1), k
     assert state["conv_in.conv_temporal.down.weight"].std() == pytest.approx(0.02, rel=0.2)
     assert m.unet.cfg.sparse_causal_indices == ("mid",) and m.unet.cfg.lora == 160
-    full = load_models("random:tiny", {}, seed=0).unet.state_dict()["conv_in.conv_temporal.weight"]
+    full = load_models("random:tiny", {}, seed=0, device="cpu").unet.state_dict()["conv_in.conv_temporal.weight"]
     eye = torch.eye(full.shape[0])
     torch.testing.assert_close(full[:, :, 1], eye, atol=0, rtol=0)
     assert not full[:, :, 0].any() and not full[:, :, 2].any()
+
+
+def test_entry_points_default_to_cuda():
+    """The port runs on the card unless the caller asks for the CPU."""
+    import inspect
+
+    from fatezero_tpu_torch.ops.schedule import make_schedule
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+
+    for fn in (load_models, FateZeroPipeline.__init__, make_schedule):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+
+
+def test_load_state_copies():
+    """Training updates parameters in place: the loaded module must not share
+    storage with the caller's arrays."""
+    model = torch.nn.Linear(3, 2)
+    state = {k: np.zeros(tuple(v.shape), np.float32) for k, v in model.state_dict().items()}
+    load_state(model, state, "cpu")
+    with torch.no_grad():
+        model.weight.add_(1.0)
+    assert not state["weight"].any()

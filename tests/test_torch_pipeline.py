@@ -85,7 +85,7 @@ def slices():
 
     tm = UNetPseudo3DConditionModel(UNet3DConfig(**cfg))
     load_state(tm, unet_state_from_flax(jax.tree.map(np.asarray, params)), "cpu")
-    pipe = FateZeroPipeline(tm, None, None, tok, store_dtype=torch.float32)
+    pipe = FateZeroPipeline(tm, None, None, tok, store_dtype=torch.float32, device="cpu")
     traj, stored = pipe.invert_fast(torch.from_numpy(lat), torch.from_numpy(emb_src), STEPS, capture=True)
     out, aux = pipe.edit_fast(
         traj, torch.from_numpy(emb_src), torch.from_numpy(emb_tgt), _controller(make_controller, tok), STEPS,

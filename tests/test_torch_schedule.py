@@ -20,7 +20,7 @@ TOL = dict(rtol=1e-6, atol=1e-6)
 @pytest.mark.parametrize("set_alpha_to_one", [False, True])
 def test_tables_and_grid(beta_schedule, set_alpha_to_one):
     js = JS.make_schedule(beta_schedule=beta_schedule, set_alpha_to_one=set_alpha_to_one)
-    ts = S.make_schedule(beta_schedule=beta_schedule, set_alpha_to_one=set_alpha_to_one)
+    ts = S.make_schedule(beta_schedule=beta_schedule, set_alpha_to_one=set_alpha_to_one, device="cpu")
     np.testing.assert_array_equal(np.asarray(js.betas), ts.betas.numpy())
     np.testing.assert_array_equal(np.asarray(js.alphas_cumprod), ts.alphas_cumprod.numpy())
     assert float(js.final_alpha_cumprod) == float(ts.final_alpha_cumprod)
@@ -31,7 +31,7 @@ def test_tables_and_grid(beta_schedule, set_alpha_to_one):
 @pytest.mark.parametrize("prediction_type", ["epsilon", "v_prediction", "sample"])
 def test_steps_match(prediction_type):
     js = JS.make_schedule(prediction_type=prediction_type)
-    ts = S.make_schedule(prediction_type=prediction_type)
+    ts = S.make_schedule(prediction_type=prediction_type, device="cpu")
     rng = np.random.RandomState(0)
     sample = rng.randn(1, 2, 4, 4, 4).astype(np.float32)
     out = rng.randn(1, 2, 4, 4, 4).astype(np.float32)
@@ -49,7 +49,7 @@ def test_steps_match(prediction_type):
 
 
 def test_per_batch_timesteps_and_cfg():
-    js, ts = JS.make_schedule(), S.make_schedule()
+    js, ts = JS.make_schedule(), S.make_schedule(device="cpu")
     rng = np.random.RandomState(1)
     sample = rng.randn(2, 2, 4, 4, 4).astype(np.float32)
     out = rng.randn(2, 2, 4, 4, 4).astype(np.float32)

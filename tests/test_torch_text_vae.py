@@ -66,7 +66,7 @@ def models():
 
     tok = StubTokenizer(vocab_size=TINY_TEXT.vocab_size)
     jpipe = JPipeline(None, None, jvae, vparams, jtext, tparams, tok)
-    pipe = FateZeroPipeline(None, vae, text, tok)
+    pipe = FateZeroPipeline(None, vae, text, tok, device="cpu")
     return jpipe, pipe
 
 
