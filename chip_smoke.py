@@ -13,7 +13,11 @@ Phases, each synchronised and timed:
    fp32 and bf16, plus a double-wide-V case; K1 with its log-sum-exp, K2 (dQ)
    and K3 (dK, dV) against plain autograd through `xla_attention` at every
    training-site shape, in fp32 and bf16; K4 (LayerNorm) against `_ln_math`
-   at the edit's LayerNorm shapes. Any value outside its tolerance fails;
+   at the edit's LayerNorm shapes; K1b (bf16-P flash forward) against its
+   plain version with K1b's KV tile at the flash-variants probe's shapes, with
+   max|K1b - K1| beside it; K1c (merged-head flash forward) against its plain
+   version at the kernel-boundary probe's site and at ragged cross shapes, in
+   fp32 and bf16. Any value outside its tolerance fails;
 4. reference: the edit at a small size (random:tiny, fp32) on the card,
    through the kernels, against the same edit on the CPU (plain versions);
 5. tuning reference: one tuning update at a small size (random:tiny, fp32,
@@ -28,11 +32,18 @@ Phases, each synchronised and timed:
    b. the same edit with FZ_PALLAS_LN=1 (LayerNorm through K4), held to (a);
    c. tuning: three updates of config/tune/jeep.yaml's settings (lora 160,
       gradient checkpointing, temporal convs trained, lr 1e-5 constant, seed
-      74831) on 8 frames at 512x512 in bf16.
+      74831) on 8 frames at 512x512 in bf16;
+   d. the flash-variants probe (fatezero_tpu_torch.scripts.bench_flash_variants),
+      the path of K1b: K1, K1b and the library's attention at three edit
+      shapes (192 folded rows, d 40, bf16);
+   e. the kernel-boundary probe (fatezero_tpu_torch.scripts.bench_kernel_boundary),
+      the path of K1c: one 64^2 attention site with the port's head-split
+      copies around K1, and with K1c on the projection output as it is.
    Outputs must be finite and of the right shapes, every kernel of a path
-   must have launched, K1/K2/K3 must have launched once per counted site, no
-   attention site with 256 or more queries may take the plain path, frozen
-   parameters must stay bit-identical and some trainable ones must move.
+   must have launched, K1/K2/K3 must have launched once per counted site and
+   K1b/K1c once per probe call, no attention site with 256 or more queries
+   may take the plain path, frozen parameters must stay bit-identical and
+   some trainable ones must move.
 
 The line before the last two is a JSON object with each kernel's launches on
 its main path, worst error against the plain version, time beside the plain
@@ -45,7 +56,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -62,7 +72,7 @@ JEEP = {"lora": 160, "gradient_checkpointing": True}
 JEEP_PROMPT = "a silver jeep driving down a curvy road in the countryside,"
 TUNE_SEED, TUNE_LR, TUNE_STEPS = 74831, 1e-5, 3
 
-KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "layer_norm.cu")
+KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "layer_norm.cu", "flash_fwd_bf16.cu", "flash_fwd_merged.cu")
 # one H100 SXM (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -93,6 +103,15 @@ TRAIN_SITES = [
 # and CLIP's (2 prompts x 77 tokens)
 LN_SHAPES = [(2 * FRAMES * 4096, 320), (2 * FRAMES * 1024, 640), (2 * FRAMES * 256, 1280),
              (2 * FRAMES * 64, 1280), (2 * 77, 768)]
+# (site, rows, heads, Sq, Skv, D) of K1c: the kernel-boundary probe's site (2
+# batch rows x 8 frames, sparse-causal KV of 2 frames), then ragged cross
+# shapes at each head dim
+K1C_SITES = [
+    ("boundary self", 16, 8, 4096, 8192, 40),
+    ("64^2 cross", 16, 8, 4096, 77, 40),
+    ("32^2 cross", 16, 8, 1024, 77, 80),
+    ("16^2 cross", 16, 8, 256, 77, 160),
+]
 
 
 def log(msg: str) -> None:
@@ -325,6 +344,90 @@ def check_layer_norm(k4: Totals):
                 k4.add(t_k4, t_plain, t_lib, 8 * rows * c, 2 * 2 * rows * c + 8 * c)
 
 
+def check_k1b(k1b: Totals):
+    """K1b against its plain version, with K1b's KV tile, at the flash-variants
+    probe's shapes (bf16), with max|K1b - K1| beside it for information."""
+    import torch
+
+    from fatezero_tpu_torch.ops import flash_attention as FA
+    from fatezero_tpu_torch.ops import flash_variants as FV
+    from fatezero_tpu_torch.scripts.bench_flash_variants import SHAPES
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, rows, sq, skv, d in SHAPES:
+        q, k, v = (torch.randn(rows, n, d, device="cuda", generator=gen).to(torch.bfloat16) for n in (sq, skv, skv))
+        scale = d**-0.5
+        # the plain version runs tile by tile (K1B_BLOCK_KV keys), so the
+        # [rows, Sq, Skv] fp32 scores never exist whole
+        plain = lambda: FV.flash_bf16_reference(q, k, v, scale, FV.K1B_BLOCK_KV)  # noqa: E731
+        out = FV.flash_bf16(q, k, v, scale).float()
+        ref = plain().float()
+        err = (out - ref).abs().max().item()
+        err_k1 = (out - FA.flash_forward(q, k, v, scale)[0].float()).abs().max().item()
+        # both round the same values to bf16; where the two exps differ in the
+        # last fp32 place a probability may round the other way, and the
+        # output to bf16 may then differ by one unit at the largest output
+        tol = 2**-7 * ref.abs().max().item() + 1e-4
+        del out, ref
+        reps = 5 if sq * skv >= 4096 * 4096 else 20
+        t_k1b = cuda_ms(lambda: FV.flash_bf16(q, k, v, scale), reps)
+        t_plain = cuda_ms(plain, 3)
+        t_lib = cuda_ms(lambda: sdpa(q, k, v, scale), reps)
+        log(f"[K1b] {name:10s} rows={rows} d={d} Sq={sq} Skv={skv} max_abs_err={err:.3e} tol={tol:.3e} "
+            f"max|K1b-K1|={err_k1:.3e} k1b_ms={t_k1b:.3f} plain_ms={t_plain:.3f} sdpa_ms={t_lib:.3f}")
+        if not err <= tol:
+            raise AssertionError(f"K1b disagrees with its plain version at {name}: {err} > {tol}")
+        k1b.err = max(k1b.err, err)
+        k1b.add(t_k1b, t_plain, t_lib, 4 * rows * sq * skv * d, 2 * rows * d * (2 * sq + 2 * skv))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def check_k1c(k1c: Totals):
+    """K1c against its plain version (chunked by rows) at K1C_SITES, fp32 and
+    bf16; adds the bf16 boundary site, the probe's shape, to k1c's sums."""
+    import torch
+    import torch.nn.functional as F
+
+    from fatezero_tpu_torch.ops import flash_variants as FV
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for site in K1C_SITES:
+        name, rows, heads, sq, skv, d = site
+        # rows per plain call: ~1 GiB of fp32 scores (the whole boundary site's are 17 GB)
+        chunk = max(1, 2**30 // (heads * sq * skv * 4))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(rows, n, heads * d, device="cuda", generator=gen).to(dtype) for n in (sq, skv, skv))
+            scale = d**-0.5
+
+            def plain():
+                return torch.cat([FV.merged_attention_reference(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk],
+                                                                scale, heads) for i in range(0, rows, chunk)])
+
+            def split(t):
+                return t.unflatten(-1, (heads, d)).transpose(1, 2)  # strided [R, H, S, D] view
+
+            out = FV.flash_merged(q, k, v, scale, heads)
+            ref = plain()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = 1e-4 if dtype == torch.float32 else 2**-7 * ref.float().abs().max().item() + 1e-4  # K1's
+            del out, ref
+            reps = 5 if sq * skv >= 4096 * 4096 else 20
+            t_k1c = cuda_ms(lambda: FV.flash_merged(q, k, v, scale, heads), reps)
+            t_plain = cuda_ms(plain, 3)
+            t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale), reps)
+            log(f"[K1c] {name:13s} rows={rows} heads={heads} d={d} Sq={sq} Skv={skv} {str(dtype):14s} "
+                f"max_abs_err={err:.3e} tol={tol:.3e} k1c_ms={t_k1c:.3f} plain_ms={t_plain:.3f} sdpa_ms={t_lib:.3f}")
+            if not err <= tol:
+                raise AssertionError(f"K1c disagrees with its plain version at {name} {dtype}: {err} > {tol}")
+            k1c.err = max(k1c.err, err)
+            if dtype == torch.bfloat16 and site is K1C_SITES[0]:
+                k1c.add(t_k1c, t_plain, t_lib, 4 * rows * heads * sq * skv * d, 2 * rows * heads * d * (2 * sq + 2 * skv))
+            del q, k, v
+            torch.cuda.empty_cache()
+
+
 def run_slice(device, m, tag, dtype, frames, res, steps, seed=0):
     """Encode prompts and a seeded clip, invert with capture, edit, decode with
     the models `m` (load_models' bundle); on the card each stage is a timed
@@ -458,28 +561,31 @@ def main() -> int:
     from fatezero_tpu_torch import csrc
     from fatezero_tpu_torch.models.loader import load_models
     from fatezero_tpu_torch.ops import flash_attention as FA
+    from fatezero_tpu_torch.ops import flash_variants as FV
     from fatezero_tpu_torch.ops import fused_norm as FN
+    from fatezero_tpu_torch.scripts import bench_flash_variants as probe_variants
+    from fatezero_tpu_torch.scripts import bench_kernel_boundary as probe_boundary
+    from fatezero_tpu_torch.scripts import card
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = card()
     log(f"[device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    kernels = [FA.flash_forward, FA.flash_dq, FA.flash_dkv, FN.layer_norm_kernel]
+    kernels = [FA.flash_forward, FA.flash_dq, FA.flash_dkv, FN.layer_norm_kernel, FV.flash_bf16, FV.flash_merged]
 
     def reset_counts():
         for fn in kernels:
             fn.launches = 0
 
-    _, t_build = phase("build K1-K4", lambda: csrc.build_all(KERNEL_SOURCES))
-    k1, k2, k3, k4 = Totals(), Totals(), Totals(), Totals()
+    _, t_build = phase("build K1-K4, K1b, K1c", lambda: csrc.build_all(KERNEL_SOURCES))
+    k1, k2, k3, k4, k1b, k1c = Totals(), Totals(), Totals(), Totals(), Totals(), Totals()
     phase("K1 vs plain (edit sites)", lambda: check_edit_k1(k1))
     phase("K1+LSE, K2, K3 vs plain autograd (tuning sites)", lambda: check_training_kernels(k2, k3))
     phase("K4 vs _ln_math", lambda: check_layer_norm(k4))
+    phase("K1b vs plain (flash-variants shapes)", lambda: check_k1b(k1b))
+    phase("K1c vs plain (kernel-boundary site, cross shapes)", lambda: check_k1c(k1c))
 
     # the edit at a small size, through the kernels on the card, against the
     # plain versions on the CPU: same seed, same weights and inputs
@@ -509,7 +615,9 @@ def main() -> int:
     # kernel's version on the card, is recorded: the main paths must make none
     # at 256 queries or more
     plain_queries = []
-    originals = {name: getattr(FA, name) for name in ("xla_attention", "attention_with_lse", "flash_bwd_reference")}
+    watched = [(FA, "xla_attention"), (FA, "attention_with_lse"), (FA, "flash_bwd_reference"),
+               (FV, "merged_attention_reference")]
+    originals = {name: getattr(mod, name) for mod, name in watched}
 
     def watch(name):
         def watched(q, *args):
@@ -518,8 +626,8 @@ def main() -> int:
             return originals[name](q, *args)
         return watched
 
-    for name in originals:
-        setattr(FA, name, watch(name))
+    for mod, name in watched:
+        setattr(mod, name, watch(name))
 
     def check_plain(path):
         big = [c for c in plain_queries if c[0] != "xla_attention" or c[1] >= FA.FLASH_MIN_QUERIES]
@@ -655,8 +763,39 @@ def main() -> int:
     if moved_frozen or not moved:
         raise AssertionError("tuning moved a frozen param or no trainable one")
     del m, trainer, state, frozen, start
-    for name, fn in originals.items():
-        setattr(FA, name, fn)
+    torch.cuda.empty_cache()
+
+    # ---- main path d: the flash-variants probe, K1b's path. Its own check
+    # runs K1b's plain version, flash_bf16_reference, which is not watched.
+    reset_counts()
+    variants, _ = phase("probe bench_flash_variants", probe_variants.main)
+    variants_launches = {fn.__name__: fn.launches for fn in kernels}
+    log(f"[bench_flash_variants] launches {json.dumps(variants_launches)}")
+    check_plain("bench_flash_variants")
+    calls = len(probe_variants.SHAPES) * probe_variants.CALLS_PER_SHAPE
+    if variants_launches["flash_bf16"] != calls or variants_launches["flash_forward"] != calls:
+        raise AssertionError(f"bench_flash_variants launched K1b/K1 {variants_launches}, expected {calls} each")
+    for r in variants:
+        tol = 2**-7 * r["max_abs_plain"] + 1e-4
+        if not (r["max_abs_k1b_plain"] <= tol and all(np.isfinite([r["K1_ms"], r["K1b_ms"], r["max_abs_k1b_k1"]]))):
+            raise AssertionError(f"bench_flash_variants {r['shape']}: K1b off its plain version ({tol:.3e}) or not finite: {r}")
+
+    # ---- main path e: the kernel-boundary probe, K1c's path
+    reset_counts()
+    boundary, _ = phase("probe bench_kernel_boundary", probe_boundary.main)
+    boundary_launches = {fn.__name__: fn.launches for fn in kernels}
+    log(f"[bench_kernel_boundary] launches {json.dumps(boundary_launches)}")
+    check_plain("bench_kernel_boundary")
+    calls = probe_boundary.CALLS_PER_SITE
+    if boundary_launches["flash_merged"] != calls or boundary_launches["flash_forward"] != calls:
+        raise AssertionError(f"bench_kernel_boundary launched K1c/K1 {boundary_launches}, expected {calls} each")
+    # K1 and K1c run the same arithmetic on the same values; the bf16 sites may
+    # differ by one unit at the largest output
+    tol = 2**-7 * boundary["max_abs_out"] + 1e-4
+    if not (boundary["max_abs_diff"] <= tol and np.isfinite(boundary["speedup"])):
+        raise AssertionError(f"bench_kernel_boundary: ship and merged sites differ by more than {tol:.3e}: {boundary}")
+    for mod, name in watched:
+        setattr(mod, name, originals[name])
 
     log(json.dumps({"kernels": [
         k1.entry("K1 flash_attention forward", "fatezero_tpu_torch/csrc/flash_fwd.cu",
@@ -667,6 +806,10 @@ def main() -> int:
                  "fatezero_tpu/ops/flash_attention.py:220", tune_launches["flash_dkv"]),
         k4.entry("K4 layer_norm", "fatezero_tpu_torch/csrc/layer_norm.cu",
                  "fatezero_tpu/ops/fused_norm.py:47", ln_launches["layer_norm_kernel"]),
+        k1b.entry("K1b flash_bf16 forward (bf16 P)", "fatezero_tpu_torch/csrc/flash_fwd_bf16.cu",
+                  "scripts/bench_flash_variants.py:60", variants_launches["flash_bf16"]),
+        k1c.entry("K1c flash_merged forward (merged heads)", "fatezero_tpu_torch/csrc/flash_fwd_merged.cu",
+                  "scripts/bench_kernel_boundary.py:71", boundary_launches["flash_merged"]),
     ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

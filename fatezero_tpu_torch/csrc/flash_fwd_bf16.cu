@@ -1,0 +1,39 @@
+// K1b: flash-attention forward with bf16 operands into both products, for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel scripts/bench_flash_variants.py::_fwd_kernel_bf16
+// (launched by flash_bf16): K1's online softmax with fp32 running max, sum and
+// accumulator, but with the precision class of FlashAttention-2 and of
+// scaled_dot_product_attention: q is rounded to bf16 after scaling, k and v are
+// rounded to bf16, S = q k^T accumulates in fp32, and the probabilities
+// P = exp(S - m_new) are rounded to one bf16 term before P V (l sums the
+// unrounded fp32 P). Where K1 splits P into hi + lo and issues two P V
+// products per tile, K1b issues one.
+//
+// P is rounded relative to the running max of its KV tile, so the output
+// depends on the tile: this kernel's is MMA_BK = 64 keys
+// (flash_variants.K1B_BLOCK_KV on the Python side), and its plain version
+// emulates the same tiles.
+//
+// Layout: q [rows, Sq, d], k [rows, Skv, d], v [rows, Skv, dv], o [rows, Sq, dv],
+// contiguous, fp32 or bf16 (cast to bf16 in the kernel as the tiles are staged;
+// o has the input dtype); d <= 160, dv <= 160.
+//
+// What bounds it on the H100: as K1, the tensor-core products at the 64x64
+// self site (4*Sq*Skv*d FLOPs per row); the kernel is K1's mma.sync path
+// (flash_fwd.cuh, BF16_P = true) with one P V product per tile in place of two.
+#include "flash_fwd.cuh"
+
+// Returns cudaGetLastError() of the launch (0 on success). dtype: 0 fp32, 1 bf16.
+extern "C" int fz_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, int rows,
+                                 int sq, int skv, int d, int dv, float scale, int dtype,
+                                 void* stream) {
+  using namespace fz::fwd;
+  if (rows < 1 || rows > 65535 || sq < 1 || skv < 1 || d < 1 || d > 160 || dv < 1 || dv > 160)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dtype == 1
+      ? dispatch_mma<__nv_bfloat16, true, false>(q, k, v, o, nullptr, rows, 1, sq, skv, d, dv, scale, s)
+      : dispatch_mma<float, true, false>(q, k, v, o, nullptr, rows, 1, sq, skv, d, dv, scale, s);
+  return (int)err;
+}

@@ -1,4 +1,4 @@
-// bf16 tensor-core helpers shared by the flash-attention kernels (K1, K2, K3).
+// bf16 tensor-core helpers shared by the flash-attention kernels (K1, K1b, K1c, K2, K3).
 //
 // mma.sync m16n8k16, bf16 in, fp32 accumulate. Fragment layouts (lane = 4g + t):
 //   A (16x16, row): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..)
@@ -57,6 +57,14 @@ __device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4], co
   split_bf16(c0[2], c0[3], hi[1], lo[1]);
   split_bf16(c1[0], c1[1], hi[2], lo[2]);
   split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// the same A operand rounded to one bf16 term (K1b's P)
+__device__ __forceinline__ void round_a(uint32_t (&a)[4], const float (&c0)[4], const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 }  // namespace fz

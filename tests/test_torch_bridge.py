@@ -7,6 +7,7 @@
 * `import fatezero_tpu_torch` (every module) succeeds with jax unavailable.
 * the random:tiny builder follows the JAX package's init rules.
 """
+import ast
 import os
 import subprocess
 import sys
@@ -85,11 +86,32 @@ def test_imports_without_jax():
         "import pkgutil, importlib, fatezero_tpu_torch\n"
         "for m in pkgutil.walk_packages(fatezero_tpu_torch.__path__, 'fatezero_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'fatezero_tpu.')) for k in sys.modules if sys.modules[k] is not None)\n"
+        "assert {'fatezero_tpu_torch.ops.flash_variants', 'fatezero_tpu_torch.scripts.bench_flash_variants',\n"
+        "        'fatezero_tpu_torch.scripts.bench_kernel_boundary'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_no_import_of_jax_anywhere_in_the_port():
+    """No module of the port, nor chip_smoke.py, imports jax or the JAX
+    package, inside a function either (the import check above sees only what
+    runs at import time)."""
+    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "profile_torch_step.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "fatezero_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else (
+                [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            bad += [(path, n) for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "fatezero_tpu")]
+    assert len(paths) > 30 and not bad, bad
 
 
 def test_random_tiny_follows_init_rules():

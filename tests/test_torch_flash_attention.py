@@ -92,9 +92,9 @@ def test_cuda_kernel_matches_plain(dtype):
         q = torch.randn(rows, sq, d, device="cuda", generator=gen).to(dt)
         k = torch.randn(rows, skv, d, device="cuda", generator=gen).to(dt)
         v = torch.randn(rows, skv, dv, device="cuda", generator=gen).to(dt)
-        before = FA.flash_attention.launches
+        before = FA.flash_forward.launches
         out = FA.flash_attention(q, k, v, d**-0.5)
-        assert FA.flash_attention.launches == before + 1
+        assert FA.flash_forward.launches == before + 1
         ref = FA.xla_attention(q, k, v, d**-0.5)
         tol = 1e-4 if dt == torch.float32 else 2**-7 * ref.float().abs().max().item() + 1e-4
         torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
