@@ -17,7 +17,14 @@ Phases, each synchronised and timed:
    plain version with K1b's KV tile at the flash-variants probe's shapes, with
    max|K1b - K1| beside it; K1c (merged-head flash forward) against its plain
    version at the kernel-boundary probe's site and at ragged cross shapes, in
-   fp32 and bf16. Any value outside its tolerance fails;
+   fp32 and bf16; then the three forward kernels at tile-edge shapes (KV
+   lengths around the 64-key tile, a ragged query tile, every head dim, fp32
+   and bf16, with and without the log-sum-exp, and one operand that starts
+   off a 16-byte boundary). Each [K1], [K1b] and [K1c] line also gives the
+   useful TFLOP/s, the share of the bound and the path the library's dispatch
+   took (CUDA cores or tensor cores, which tile loader), which must be the
+   one `kernel_plan` predicts; K1c's lines time K1 on the same work with its
+   heads folded (k1_folded_ms). Any value outside its tolerance fails;
 4. reference: the edit at a small size (random:tiny, fp32) on the card,
    through the kernels, against the same edit on the CPU (plain versions);
 5. tuning reference: one tuning update at a small size (random:tiny, fp32,
@@ -29,6 +36,7 @@ Phases, each synchronised and timed:
    a. edit: the teaser edit (teaser model_config, 8 frames at 512x512, bf16,
       10 DDIM steps): encode both prompts, VAE-encode a seeded synthetic
       clip, invert with a full capture, edit from the stored payload, decode;
+      K1's launches are then listed by shape and by the kernel each took;
    b. the same edit with FZ_PALLAS_LN=1 (LayerNorm through K4), held to (a);
    c. tuning: three updates of config/tune/jeep.yaml's settings (lora 160,
       gradient checkpointing, temporal convs trained, lr 1e-5 constant, seed
@@ -114,6 +122,13 @@ K1C_SITES = [
 ]
 
 
+# tile-edge shapes of the three forward kernels: KV lengths around the 64-key
+# tile (and the 77 text tokens), a whole and a ragged query tile, every head dim
+EDGE_SKV = (1, 63, 64, 65, 77, 128, 129, 200)
+EDGE_SQ = (256, 300)
+EDGE_D = (40, 80, 160)
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -192,6 +207,19 @@ def sdpa(q, k, v, scale):
     return F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale)[0]
 
 
+def rate(flops, nbytes, ms) -> str:
+    """Useful TFLOP/s and the share of the bound for one timed shape."""
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    return f"tflops={flops / ms / 1e9:.1f} of_bound={bound / ms:.1%}"
+
+
+def took(plan: dict, expect: dict) -> str:
+    """The path the built library chose, which must be kernel_plan's."""
+    if plan != expect:
+        raise AssertionError(f"the library's dispatch {plan} is not kernel_plan's {expect}")
+    return f"path={plan['path']}/{plan['loader']}"
+
+
 def check_edit_k1(k1: Totals):
     """K1 against xla_attention at every edit site shape; adds the bf16 main-path
     shapes to k1's sums."""
@@ -220,16 +248,18 @@ def check_edit_k1(k1: Totals):
             t_k1 = cuda_ms(lambda: FA.flash_attention(q, k, v, scale), reps)
             t_plain = cuda_ms(lambda: FA.xla_attention(q, k, v, scale), reps)
             t_lib = cuda_ms(lambda: sdpa(q, k, v, scale), reps) if dv == d else float("nan")
+            flops = 2 * rows * sq * skv * (d + dv)
+            nbytes = q.element_size() * rows * (sq * d + skv * d + skv * dv + sq * dv)
+            path = took(FA.flash_forward_plan(q, k, v), FA.kernel_plan(d, dv, dtype))
             log(
                 f"[K1] {name:12s} rows={rows} d={d} Sq={sq} Skv={skv} dv={dv} {str(dtype):14s} "
-                f"max_abs_err={err:.3e} tol={tol:.3e} k1_ms={t_k1:.3f} plain_ms={t_plain:.3f} sdpa_ms={t_lib:.3f}"
+                f"max_abs_err={err:.3e} tol={tol:.3e} k1_ms={t_k1:.3f} plain_ms={t_plain:.3f} sdpa_ms={t_lib:.3f} "
+                f"{rate(flops, nbytes, t_k1)} {path}"
             )
             if not err <= tol:
                 raise AssertionError(f"K1 disagrees with the plain version at {site} {dtype}: {err} > {tol}")
             k1.err = max(k1.err, err)
             if dtype == torch.bfloat16 and site is not K1_WIDE_V:
-                flops = 2 * rows * sq * skv * (d + dv)
-                nbytes = 2 * rows * (sq * d + skv * d + skv * dv + sq * dv)
                 k1.add(t_k1, t_plain, t_lib, flops, nbytes)
             del q, k, v, out, ref
     torch.cuda.empty_cache()
@@ -373,12 +403,15 @@ def check_k1b(k1b: Totals):
         t_k1b = cuda_ms(lambda: FV.flash_bf16(q, k, v, scale), reps)
         t_plain = cuda_ms(plain, 3)
         t_lib = cuda_ms(lambda: sdpa(q, k, v, scale), reps)
+        flops, nbytes = 4 * rows * sq * skv * d, 2 * rows * d * (2 * sq + 2 * skv)
+        path = took(FV.flash_bf16_plan(q, k, v), FA.kernel_plan(d, d, torch.bfloat16, bf16_p=True))
         log(f"[K1b] {name:10s} rows={rows} d={d} Sq={sq} Skv={skv} max_abs_err={err:.3e} tol={tol:.3e} "
-            f"max|K1b-K1|={err_k1:.3e} k1b_ms={t_k1b:.3f} plain_ms={t_plain:.3f} sdpa_ms={t_lib:.3f}")
+            f"max|K1b-K1|={err_k1:.3e} k1b_ms={t_k1b:.3f} plain_ms={t_plain:.3f} sdpa_ms={t_lib:.3f} "
+            f"{rate(flops, nbytes, t_k1b)} {path}")
         if not err <= tol:
             raise AssertionError(f"K1b disagrees with its plain version at {name}: {err} > {tol}")
         k1b.err = max(k1b.err, err)
-        k1b.add(t_k1b, t_plain, t_lib, 4 * rows * sq * skv * d, 2 * rows * d * (2 * sq + 2 * skv))
+        k1b.add(t_k1b, t_plain, t_lib, flops, nbytes)
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -389,6 +422,7 @@ def check_k1c(k1c: Totals):
     import torch
     import torch.nn.functional as F
 
+    from fatezero_tpu_torch.ops import flash_attention as FA
     from fatezero_tpu_torch.ops import flash_variants as FV
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -417,15 +451,127 @@ def check_k1c(k1c: Totals):
             t_k1c = cuda_ms(lambda: FV.flash_merged(q, k, v, scale, heads), reps)
             t_plain = cuda_ms(plain, 3)
             t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=scale), reps)
+            # K1 on the same work, its heads folded into rows by a copy that is not timed
+            qf, kf, vf = (split(x).reshape(rows * heads, -1, d).contiguous() for x in (q, k, v))
+            t_k1 = cuda_ms(lambda: FA.flash_forward(qf, kf, vf, scale), reps)
+            del qf, kf, vf
+            flops = 4 * rows * heads * sq * skv * d
+            nbytes = q.element_size() * rows * heads * d * (2 * sq + 2 * skv)
+            path = took(FV.flash_merged_plan(q, k, v, heads), FA.kernel_plan(d, d, dtype, merged=True))
             log(f"[K1c] {name:13s} rows={rows} heads={heads} d={d} Sq={sq} Skv={skv} {str(dtype):14s} "
-                f"max_abs_err={err:.3e} tol={tol:.3e} k1c_ms={t_k1c:.3f} plain_ms={t_plain:.3f} sdpa_ms={t_lib:.3f}")
+                f"max_abs_err={err:.3e} tol={tol:.3e} k1c_ms={t_k1c:.3f} plain_ms={t_plain:.3f} sdpa_ms={t_lib:.3f} "
+                f"k1_folded_ms={t_k1:.3f} {rate(flops, nbytes, t_k1c)} {path}")
             if not err <= tol:
                 raise AssertionError(f"K1c disagrees with its plain version at {name} {dtype}: {err} > {tol}")
             k1c.err = max(k1c.err, err)
             if dtype == torch.bfloat16 and site is K1C_SITES[0]:
-                k1c.add(t_k1c, t_plain, t_lib, 4 * rows * heads * sq * skv * d, 2 * rows * heads * d * (2 * sq + 2 * skv))
+                k1c.add(t_k1c, t_plain, t_lib, flops, nbytes)
             del q, k, v
             torch.cuda.empty_cache()
+
+
+def check_forward_edges():
+    """K1 (with and without its log-sum-exp), K1b and K1c against their plain
+    versions where a ring of KV tiles can break: KV lengths around the tile,
+    a ragged query tile, every head dim, fp32 and bf16; then bf16 operands
+    that start 2 bytes off a 16-byte boundary, which must take the element
+    loader. Tolerances are those of the path-shape checks."""
+    import torch
+
+    from fatezero_tpu_torch.ops import flash_attention as FA
+    from fatezero_tpu_torch.ops import flash_variants as FV
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, heads = 2, 2
+    worst = {}
+
+    def hold(kernel, got, ref, tol, what):
+        err = (got.float() - ref.float()).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{kernel} disagrees with its plain version at {what}: {err} > {tol}")
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+
+    def three_kernels(q, k, v, qm, km, vm, scale, what):
+        """q, k, v [rows, S, d]; qm, km, vm [rows, S, heads * d]"""
+        dtype = q.dtype
+        ref, ref_lse = FA.attention_with_lse(q, k, v, scale)
+        big = ref.float().abs().max().item()
+        tol = 1e-4 if dtype == torch.float32 else 2**-7 * big + 1e-4
+        hold("K1", FA.flash_forward(q, k, v, scale)[0], ref, tol, what)
+        o, lse = FA.flash_forward(q, k, v, scale, with_lse=True)
+        hold("K1", o, ref, tol, what + " with lse")
+        hold("K1 lse", lse, ref_lse, 1e-4 * max(1.0, ref_lse.abs().max().item()), what)
+        ref_b = FV.flash_bf16_reference(q, k, v, scale, FV.K1B_BLOCK_KV)
+        hold("K1b", FV.flash_bf16(q, k, v, scale), ref_b, 2**-7 * ref_b.float().abs().max().item() + 1e-4, what)
+        ref_m = FV.merged_attention_reference(qm, km, vm, scale, heads)
+        tol_m = 1e-4 if dtype == torch.float32 else 2**-7 * ref_m.float().abs().max().item() + 1e-4
+        hold("K1c", FV.flash_merged(qm, km, vm, scale, heads), ref_m, tol_m, what)
+
+    n = 0
+    for d in EDGE_D:
+        scale = d**-0.5
+        for sq in EDGE_SQ:
+            for skv in EDGE_SKV:
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v = (torch.randn(rows, s, heads * d, device="cuda", generator=gen).to(dtype)
+                               for s in (sq, skv, skv))
+                    three_kernels(q[..., :d].contiguous(), k[..., :d].contiguous(), v[..., :d].contiguous(),
+                                  q, k, v, scale, f"d={d} Sq={sq} Skv={skv} {dtype}")
+                    n += 1
+
+    # the same storage one element on: contiguous, but 2 bytes off the boundary
+    def shifted(t):
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        out = buf[1:1 + t.numel()].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 2
+        return out
+
+    paths = set()
+    for d, sq, skv in [(40, 300, 77), (80, 256, 129), (160, 256, 200)]:
+        scale = d**-0.5
+        q, k, v = (torch.randn(rows, s, heads * d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for s in (sq, skv, skv))
+        qf, kf, vf = (t[..., :d].contiguous() for t in (q, k, v))
+        for which in range(3):  # q, then k, then v off the boundary
+            folded = [shifted(t) if i == which else t for i, t in enumerate((qf, kf, vf))]
+            merged = [shifted(t) if i == which else t for i, t in enumerate((q, k, v))]
+            for plan, mirror in [
+                (FA.flash_forward_plan(*folded), FA.kernel_plan(d, d, torch.bfloat16, aligned=False)),
+                (FV.flash_bf16_plan(*folded), FA.kernel_plan(d, d, torch.bfloat16, aligned=False, bf16_p=True)),
+                (FV.flash_merged_plan(*merged, heads), FA.kernel_plan(d, d, torch.bfloat16, aligned=False, merged=True)),
+            ]:
+                paths.add(took(plan, mirror))
+                if plan["loader"] != "element":
+                    raise AssertionError(f"a misaligned operand took the {plan['loader']} loader")
+            three_kernels(*folded, *merged, scale, f"d={d} Sq={sq} Skv={skv} operand {which} off a 16-byte boundary")
+            n += 1
+    # K1b scales q before the product, so it alone takes a scale that is not positive
+    for scale in (-(d**-0.5), 0.0):
+        ref_b = FV.flash_bf16_reference(qf, kf, vf, scale, FV.K1B_BLOCK_KV)
+        hold("K1b", FV.flash_bf16(qf, kf, vf, scale), ref_b, 2**-7 * ref_b.float().abs().max().item() + 1e-4,
+             f"d={d} Sq={sq} Skv={skv} scale={scale}")
+    torch.cuda.synchronize()
+    log(f"[edges] {n} shapes x (K1, K1+lse, K1b, K1c) within tolerance; worst errors "
+        + " ".join(f"{key}={err:.3e}" for key, err in worst.items())
+        + f"; misaligned operands took {sorted(paths)}")
+
+
+def log_k1_paths(calls):
+    """The edit's K1 launches by shape and by the kernel `kernel_plan` gives each
+    (the operands are contiguous copies, on 16-byte boundaries): how many lie
+    off the tensor cores (a double-wide V at d 160 would take the CUDA-core kernel)."""
+    import collections
+
+    from fatezero_tpu_torch.ops import flash_attention as FA
+
+    by_path = collections.Counter()
+    for (rows, sq, skv, d, dv, dtype), n in sorted(collections.Counter(calls).items(), key=lambda kv: -kv[1]):
+        plan = FA.kernel_plan(d, dv, dtype)
+        log(f"[edit] K1 x{n:<4d} rows={rows} Sq={sq} Skv={skv} d={d} dv={dv} {str(dtype):14s} "
+            f"path={plan['path']}/{plan['loader']}")
+        by_path[plan["path"]] += n
+    log(f"[edit] K1 launches by path: {json.dumps(by_path)}")
 
 
 def run_slice(device, m, tag, dtype, frames, res, steps, seed=0):
@@ -586,6 +732,7 @@ def main() -> int:
     phase("K4 vs _ln_math", lambda: check_layer_norm(k4))
     phase("K1b vs plain (flash-variants shapes)", lambda: check_k1b(k1b))
     phase("K1c vs plain (kernel-boundary site, cross shapes)", lambda: check_k1c(k1c))
+    phase("K1, K1b, K1c vs plain (tile-edge shapes, misaligned operands)", check_forward_edges)
 
     # the edit at a small size, through the kernels on the card, against the
     # plain versions on the CPU: same seed, same weights and inputs
@@ -641,7 +788,15 @@ def main() -> int:
     sd = load_models("random:sd", TEASER, dtype=torch.bfloat16, seed=0, device=device)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    k1_calls, flash_attention = [], FA.flash_attention
+
+    def recorded(q, k, v, scale):  # the shapes fused_attention hands to K1
+        k1_calls.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2], q.dtype))
+        return flash_attention(q, k, v, scale)
+
+    FA.flash_attention = recorded
     outs, times = run_slice(device, sd, "random:sd", torch.bfloat16, FRAMES, RES, STEPS)
+    FA.flash_attention = flash_attention
     edit_launches = {fn.__name__: fn.launches for fn in kernels}
     peak = torch.cuda.max_memory_allocated()
     lat = RES // 8
@@ -657,6 +812,9 @@ def main() -> int:
         if tuple(val.shape) != shape or not finite:
             raise AssertionError(f"{key}: expected finite {shape}, got {tuple(val.shape)} finite={finite}")
     log(f"[edit] launches {json.dumps(edit_launches)}")
+    log_k1_paths(k1_calls)
+    if len(k1_calls) != edit_launches["flash_forward"]:
+        raise AssertionError(f"{len(k1_calls)} K1 calls recorded, {edit_launches['flash_forward']} launched")
     if edit_launches["flash_forward"] <= 0:
         raise AssertionError("the edit never launched K1")
     check_plain("edit")

@@ -19,21 +19,42 @@
 // contiguous, fp32 or bf16 (cast to bf16 in the kernel as the tiles are staged;
 // o has the input dtype); d <= 160, dv <= 160.
 //
-// What bounds it on the H100: as K1, the tensor-core products at the 64x64
-// self site (4*Sq*Skv*d FLOPs per row); the kernel is K1's mma.sync path
-// (flash_fwd.cuh, BF16_P = true) with one P V product per tile in place of two.
+// What bounds it on the H100: as K1 (flash_fwd.cu), the softmax between the
+// products more than the products. The kernels are K1's (flash_fwd.cuh,
+// BF16_P = true) with one P V product per tile in place of two and one
+// conversion per pair of probabilities in place of the hi/lo split: bf16 input
+// takes the wgmma kernel at d, dv <= 80 and the mma.sync kernel above; fp32
+// input takes the mma.sync kernel, its tiles read by 16-byte loads and rounded
+// in registers (an asynchronous copy cannot convert).
 #include "flash_fwd.cuh"
+
+namespace {
+
+// dtype: 0 fp32, 1 bf16
+cudaError_t run(const fz::fwd::FwdArgs& a, int dtype) {
+  using namespace fz::fwd;
+  if (a.rows < 1 || a.rows > 65535 || a.sq < 1 || a.skv < 1 || a.d < 1 || a.d > 160 || a.dv < 1 ||
+      a.dv > 160)
+    return cudaErrorInvalidValue;
+  return dtype == 1 ? dispatch_mma<__nv_bfloat16, true, false>(a) : dispatch_mma<float, true, false>(a);
+}
+
+}  // namespace
 
 // Returns cudaGetLastError() of the launch (0 on success). dtype: 0 fp32, 1 bf16.
 extern "C" int fz_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, int rows,
                                  int sq, int skv, int d, int dv, float scale, int dtype,
                                  void* stream) {
-  using namespace fz::fwd;
-  if (rows < 1 || rows > 65535 || sq < 1 || skv < 1 || d < 1 || d > 160 || dv < 1 || dv > 160)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 1
-      ? dispatch_mma<__nv_bfloat16, true, false>(q, k, v, o, nullptr, rows, 1, sq, skv, d, dv, scale, s)
-      : dispatch_mma<float, true, false>(q, k, v, o, nullptr, rows, 1, sq, skv, d, dv, scale, s);
-  return (int)err;
+  return (int)run({q, k, v, o, nullptr, rows, 1, sq, skv, d, dv, scale,
+                   static_cast<cudaStream_t>(stream), nullptr}, dtype);
+}
+
+// What fz_flash_fwd_bf16 would launch for these operands (see fz_flash_fwd_plan).
+extern "C" int fz_flash_fwd_bf16_plan(const void* q, const void* k, const void* v, const void* o,
+                                      int d, int dv, int dtype, int* plan) {
+  fz::fwd::Plan p{};
+  const int err = (int)run({q, k, v, const_cast<void*>(o), nullptr, 1, 1, 1, 1, d, dv, 1.f, nullptr, &p},
+                           dtype);
+  fz::fwd::export_plan(p, plan);
+  return err;
 }

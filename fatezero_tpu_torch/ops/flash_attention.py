@@ -15,6 +15,10 @@ the same sites carry gradients.
   ``flash_dkv`` K3 (csrc/flash_bwd.cu). Each counts its launches in
   ``.launches``. On a CPU tensor they compute the same function with the
   plain versions, ``attention_with_lse`` and ``flash_bwd_reference``.
+* ``kernel_plan`` mirrors, in plain Python, which forward kernel the C entry
+  points choose for a call (CUDA cores or tensor cores, which tile loader,
+  tile sizes, ring stages, shared bytes); ``flash_forward_plan`` asks the
+  built library the same question, so a run can show the two agree.
 * ``fused_attention`` is the dispatch rule of the JAX package: 256 queries or
   more go to ``flash_attention``; fewer go to the plain math on any device.
 """
@@ -32,6 +36,68 @@ FLASH_MIN_QUERIES = 256
 MAX_HEAD_DIM = 160
 MAX_VALUE_DIM = 320
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# csrc/flash_fwd.cuh's constants, by their names there (tests/test_torch_flash_plan.py
+# parses the header and holds these to it)
+MMA_BK = 64
+MMA_PAD = 8
+MMA_SMALL_DK = 5
+MMA_SMALL_DVN = 10
+MMA_WARPS_SMALL = 8
+MMA_WARPS_LARGE = 4
+MMA_STAGES_SMALL = 3
+MMA_STAGES_LARGE = 2
+WG_WARPS = 8
+WG_STAGES = 3
+WG_BAR_BYTES = 128
+SMEM_LIMIT = 232448
+BQ = 32
+BK = 64
+# what the C entry points report in plan[0] and plan[1] (fz_flash_fwd_plan)
+PATHS = ("fma", "mma.sync", "wgmma")
+LOADERS = ("element", "staged", "async")
+
+
+def kernel_plan(d: int, dv: int, dtype: torch.dtype, aligned: bool = True, merged: bool = False,
+                bf16_p: bool = False) -> dict:
+    """Which forward kernel a call takes: the C dispatch of csrc/flash_fwd*.cu in Python.
+
+    `merged` is K1c's layout, `bf16_p` K1b's numerics, neither is K1; `aligned`
+    says that q, k, v and o all start on 16-byte boundaries. Returns path
+    ("fma": fp32 on CUDA cores; "wgmma": bf16 tensor cores by warpgroup
+    products, for aligned bf16 operands at the small head dims; "mma.sync":
+    bf16 tensor cores otherwise), loader
+    ("async": 16-byte cp.async into the ring; "staged": 16-byte loads of fp32
+    rounded through registers; "element": one element at a time, for operands
+    that are misaligned or whose widths are no multiples of 8), queries per
+    block, keys per KV tile, ring stages and dynamic shared bytes.
+    """
+    if dtype not in _DTYPES:
+        raise TypeError(f"the flash kernels take fp32 or bf16, got {dtype}")
+    bf16 = dtype == torch.bfloat16
+    if merged:
+        dv = d
+    if d < 1 or d > MAX_HEAD_DIM or dv < 1 or dv > (MAX_HEAD_DIM if merged or bf16_p else MAX_VALUE_DIM):
+        raise ValueError(f"no flash kernel takes d {d}, dv {dv}")
+    if not (bf16_p or (bf16 and dv <= 160)):
+        smem = 4 * (BQ * (d + 1) + BK * (d + 1) + BK * dv + BQ * BK)
+        return dict(path="fma", loader="element", block_q=BQ, block_kv=BK, stages=1, smem_bytes=smem)
+    dk = 3 if d <= 48 else 5 if d <= 80 else 10  # 16-wide k-steps of the head dim
+    dvn = 5 if dv <= 40 else 10 if dv <= 80 else 20  # 8-wide n-tiles of V
+    small = dk <= MMA_SMALL_DK and dvn <= MMA_SMALL_DVN
+    warps = MMA_WARPS_SMALL if small else MMA_WARPS_LARGE
+    stages = MMA_STAGES_SMALL if small else MMA_STAGES_LARGE
+    qs = 16 * dk + MMA_PAD
+    vs = 8 * dvn + (0 if dvn % 2 else MMA_PAD)
+    chunked = aligned and d % 8 == 0 and dv % 8 == 0
+    loader = "element" if not chunked else "async" if bf16 else "staged"
+    wgmma = chunked and bf16 and small
+    if wgmma:  # its own block shape; unpadded core-matrix K and V tiles behind the ring's barriers
+        warps, stages = WG_WARPS, WG_STAGES
+        smem = WG_BAR_BYTES + 2 * (16 * warps * qs + stages * MMA_BK * (16 * dk + 8 * dvn))
+    else:
+        smem = 2 * (16 * warps * qs + stages * MMA_BK * (qs + vs))
+    return dict(path="wgmma" if wgmma else "mma.sync", loader=loader, block_q=16 * warps, block_kv=MMA_BK, stages=stages, smem_bytes=smem)
 
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -118,6 +184,36 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tenso
         raise ValueError(f"flash_attention supports 1..65535 folded rows, got {b}")
 
 
+def library_plan(source: str, name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: int, dv: int) -> dict:
+    """Ask csrc/<source>'s entry point `name` (an fz_*_plan) what it would launch
+    for these CUDA operands; the answer has `kernel_plan`'s keys. o is allocated
+    by the wrappers, always on a 16-byte boundary, and is passed as null."""
+    fn = getattr(csrc.load(source), name)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, d, dv, _DTYPES[q.dtype], out)
+    if err != 0:
+        raise RuntimeError(f"{name} refused d {d}, dv {dv}, {q.dtype} with CUDA error {err}")
+    return dict(path=PATHS[out[0]], loader=LOADERS[out[1]], block_q=out[2], block_kv=out[3], stages=out[4],
+                smem_bytes=out[5])
+
+
+def flash_forward_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """What `flash_forward` launches for these CUDA operands, from the built library."""
+    _check(q, k, v)
+    return library_plan("flash_fwd.cu", "fz_flash_fwd_plan", q, k, v, q.shape[2], v.shape[2])
+
+
+def _check_scale(scale: float) -> None:
+    """K1 and K1c take the running max of the unscaled scores, which is the max
+    of the scaled ones only for a positive scale (attention's d**-0.5). Their
+    wrappers refuse any other scale on either device, so that the card and the
+    CPU compute one function; the JAX kernels scale first and take any."""
+    if not scale > 0:
+        raise ValueError(f"K1 and K1c take a positive scale, got {scale}")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -129,7 +225,9 @@ def flash_forward(
 
     On a CUDA tensor this launches K1 or raises; a CPU tensor takes the plain
     version. The log-sum-exp is written only when asked for (differentiation).
+    The scale must be positive.
     """
+    _check_scale(scale)
     if not q.is_cuda:
         if with_lse:
             return attention_with_lse(q, k, v, scale)

@@ -25,7 +25,7 @@ import functools
 import torch
 
 from fatezero_tpu_torch import csrc
-from fatezero_tpu_torch.ops.flash_attention import _DTYPES, MAX_HEAD_DIM, _stream, xla_attention
+from fatezero_tpu_torch.ops.flash_attention import _DTYPES, MAX_HEAD_DIM, _check_scale, _stream, library_plan, xla_attention
 
 K1B_BLOCK_KV = 64  # csrc/flash_fwd.cuh MMA_BK: the KV tile K1b rounds P in
 NEG_INF = -1e30  # the kernels' mask value
@@ -119,9 +119,10 @@ def flash_merged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
     """K1c: softmax per head over merged-head operands, [R, Sq, H*D] in q's dtype.
 
     q [R, Sq, H*D], k/v [R, Skv, H*D]; head h is columns h*D..(h+1)*D-1. fp32
-    or bf16, D <= 160. A CUDA tensor launches K1c or raises; a CPU tensor takes
-    `merged_attention_reference`.
+    or bf16, D <= 160, a positive scale. A CUDA tensor launches K1c or raises;
+    a CPU tensor takes `merged_attention_reference`.
     """
+    _check_scale(scale)
     if not q.is_cuda:
         return merged_attention_reference(q, k, v, scale, heads)
     _check("flash_merged", q, k, v)
@@ -140,6 +141,19 @@ def flash_merged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
         raise RuntimeError(f"flash_fwd_merged launch failed with CUDA error {err}")
     flash_merged.launches += 1
     return out
+
+
+def flash_bf16_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """What `flash_bf16` launches for these CUDA operands (`kernel_plan`'s keys)."""
+    _check("flash_bf16", q, k, v)
+    return library_plan("flash_fwd_bf16.cu", "fz_flash_fwd_bf16_plan", q, k, v, q.shape[2], v.shape[2])
+
+
+def flash_merged_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> dict:
+    """What `flash_merged` launches for these CUDA operands (`kernel_plan`'s keys)."""
+    _check("flash_merged", q, k, v)
+    d = q.shape[2] // heads
+    return library_plan("flash_fwd_merged.cu", "fz_flash_fwd_merged_plan", q, k, v, d, d)
 
 
 flash_bf16.launches = 0

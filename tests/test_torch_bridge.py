@@ -100,7 +100,8 @@ def test_no_import_of_jax_anywhere_in_the_port():
     """No module of the port, nor chip_smoke.py, imports jax or the JAX
     package, inside a function either (the import check above sees only what
     runs at import time)."""
-    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "profile_torch_step.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "profile_torch_step.py"),
+             os.path.join(REPO, "scripts", "ab_flash_kernels.py")]
     for root, _, files in os.walk(os.path.join(REPO, "fatezero_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     bad = []

@@ -88,7 +88,11 @@ def test_cuda_kernel_matches_plain(dtype):
         pytest.skip("needs a CUDA device (K1 is a CUDA kernel with no CPU mode)")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for rows, sq, skv, d, dv in [(4, 300, 77, 40, 40), (2, 1024, 1024, 80, 160), (2, 256, 256, 160, 160)]:
+    # path-like shapes, then the tile-edge shapes of chip_smoke.py: KV lengths
+    # around the 64-key tile, a ragged query tile, every head dim
+    shapes = [(4, 300, 77, 40, 40), (2, 1024, 1024, 80, 160), (2, 256, 256, 160, 160)]
+    shapes += [(2, sq, skv, d, d) for d in (40, 80, 160) for sq in (256, 300) for skv in (1, 63, 64, 65, 77, 128, 129, 200)]
+    for rows, sq, skv, d, dv in shapes:
         q = torch.randn(rows, sq, d, device="cuda", generator=gen).to(dt)
         k = torch.randn(rows, skv, d, device="cuda", generator=gen).to(dt)
         v = torch.randn(rows, skv, dv, device="cuda", generator=gen).to(dt)

@@ -90,7 +90,10 @@ def test_cuda_backward_kernels_match_plain(dtype):
         pytest.skip("needs a CUDA device (K1-K3 are CUDA kernels with no CPU mode)")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for rows, sq, skv, d in [(4, 300, 77, 40), (2, 1024, 2048, 80), (2, 256, 512, 160)]:
+    # path-like shapes, then tile-edge shapes of the forward's KV ring (chip_smoke.py)
+    shapes = [(4, 300, 77, 40), (2, 1024, 2048, 80), (2, 256, 512, 160)]
+    shapes += [(2, 300, skv, d) for d in (40, 80, 160) for skv in (1, 63, 64, 65, 129, 200)]
+    for rows, sq, skv, d in shapes:
         q, k, v, do = (torch.randn(rows, n, d, device="cuda", generator=gen).to(dt) for n in (sq, skv, skv, sq))
         scale = d**-0.5
         before = (FA.flash_forward.launches, FA.flash_dq.launches, FA.flash_dkv.launches)

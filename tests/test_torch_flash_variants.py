@@ -166,7 +166,10 @@ def test_cuda_k1b_matches_plain(dtype):
         pytest.skip("needs a CUDA device (K1b is a CUDA kernel with no CPU mode)")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for rows, sq, skv, d, dv in [(4, 300, 77, 40, 40), (2, 1024, 1024, 80, 80), (2, 256, 256, 160, 160)]:
+    # path-like shapes, then the tile-edge shapes of chip_smoke.py
+    shapes = [(4, 300, 77, 40, 40), (2, 1024, 1024, 80, 80), (2, 256, 256, 160, 160)]
+    shapes += [(2, sq, skv, d, d) for d in (40, 80, 160) for sq in (256, 300) for skv in (1, 63, 64, 65, 77, 128, 129, 200)]
+    for rows, sq, skv, d, dv in shapes:
         q, k = (torch.randn(rows, n, d, device="cuda", generator=gen).to(dt) for n in (sq, skv))
         v = torch.randn(rows, skv, dv, device="cuda", generator=gen).to(dt)
         before = FV.flash_bf16.launches
@@ -185,7 +188,10 @@ def test_cuda_k1c_matches_plain(dtype):
         pytest.skip("needs a CUDA device (K1c is a CUDA kernel with no CPU mode)")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for rows, heads, sq, skv, d in [(2, 8, 300, 77, 40), (2, 4, 1024, 2048, 80), (2, 2, 256, 77, 160)]:
+    # path-like shapes, then the tile-edge shapes of chip_smoke.py
+    shapes = [(2, 8, 300, 77, 40), (2, 4, 1024, 2048, 80), (2, 2, 256, 77, 160)]
+    shapes += [(2, 2, sq, skv, d) for d in (40, 80, 160) for sq in (256, 300) for skv in (1, 63, 64, 65, 77, 128, 129, 200)]
+    for rows, heads, sq, skv, d in shapes:
         q, k, v = (torch.randn(rows, n, heads * d, device="cuda", generator=gen).to(dt) for n in (sq, skv, skv))
         before = FV.flash_merged.launches
         out = FV.flash_merged(q, k, v, d**-0.5, heads)
