@@ -19,8 +19,12 @@ Phases, each synchronised and timed:
    version at the kernel-boundary probe's site and at ragged cross shapes, in
    fp32 and bf16; then the three forward kernels at tile-edge shapes (KV
    lengths around the 64-key tile, a ragged query tile, every head dim, fp32
-   and bf16, with and without the log-sum-exp, and one operand that starts
-   off a 16-byte boundary). Each [K1], [K1b] and [K1c] line also gives the
+   and bf16, with and without the log-sum-exp, one operand that starts
+   off a 16-byte boundary, a negative scale and scale 0); K2 and K3 at their
+   own tile-edge shapes (query counts and KV lengths around the 64-row tiles,
+   every head dim, fp32 and bf16, a negative scale, each operand in turn off
+   a 16-byte boundary) against their plain version and plain autograd. Each
+   [K1], [K1b], [K1c] and [K1-K3] line also gives the
    useful TFLOP/s, the share of the bound and the path the library's dispatch
    took (CUDA cores or tensor cores, which tile loader), which must be the
    one `kernel_plan` predicts; K1c's lines time K1 on the same work with its
@@ -127,6 +131,9 @@ K1C_SITES = [
 EDGE_SKV = (1, 63, 64, 65, 77, 128, 129, 200)
 EDGE_SQ = (256, 300)
 EDGE_D = (40, 80, 160)
+# the backward's: query counts around its 64-row tiles, KV lengths around them
+EDGE_BWD_SQ = (1, 63, 64, 65, 127, 129, 300)
+EDGE_BWD_SKV = (1, 64, 77, 129, 200)
 
 
 def log(msg: str) -> None:
@@ -321,20 +328,23 @@ def check_training_kernels(k2: Totals, k3: Totals):
                 lib_out = sdpa(qs, ks, vs, scale)
             t_lib = cuda_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True), reps)
             del lib_out, qs, ks, vs
+            tok = rows * d * q.element_size()  # bytes of one token's row of one operand
+            work2 = (6 * rows * sq * skv * d, tok * (4 * sq + 2 * skv) + 4 * rows * sq)
+            work3 = (8 * rows * sq * skv * d, tok * (3 * sq + 4 * skv) + 4 * rows * sq)
+            path2, path3 = (took(FA.flash_bwd_plan(kind, q, k, v, o, do), FA.bwd_kernel_plan(kind, d, dtype))
+                            for kind in ("dq", "dkv"))
             log(
                 f"[K1-K3] {name:10s} rows={rows} d={d} Sq={sq} Skv={skv} {str(dtype):14s} "
                 + " ".join(f"err_{key}={e:.3e}" for key, e in errs.items())
                 + f" k1_lse_ms={t_k1:.3f} k2_ms={t_k2:.3f} k3_ms={t_k3:.3f} plain_fwd_ms={t_plain_fwd:.3f}"
                 f" plain_bwd_ms={t_plain_bwd:.3f} sdpa_bwd_ms={t_lib:.3f}"
+                f" | K2 {rate(*work2, t_k2)} {path2} | K3 {rate(*work3, t_k3)} {path3}"
             )
             k2.err = max(k2.err, errs["dq"])
             k3.err = max(k3.err, errs["dk"], errs["dv"])
             if dtype == torch.bfloat16:
-                tok = rows * d * 2  # bytes of one token's row of one bf16 operand
-                k2.add(t_k2, t_plain_bwd, t_lib, 6 * rows * sq * skv * d,
-                       tok * (4 * sq + 2 * skv) + 4 * rows * sq)
-                k3.add(t_k3, t_plain_bwd, t_lib, 8 * rows * sq * skv * d,
-                       tok * (3 * sq + 4 * skv) + 4 * rows * sq)
+                k2.add(t_k2, t_plain_bwd, t_lib, *work2)
+                k3.add(t_k3, t_plain_bwd, t_lib, *work3)
             del q, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
 
@@ -470,12 +480,24 @@ def check_k1c(k1c: Totals):
             torch.cuda.empty_cache()
 
 
+def shifted(t):
+    """A copy of t in storage one element on: contiguous, but 2 bytes off a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 2
+    return out
+
+
 def check_forward_edges():
     """K1 (with and without its log-sum-exp), K1b and K1c against their plain
     versions where a ring of KV tiles can break: KV lengths around the tile,
     a ragged query tile, every head dim, fp32 and bf16; then bf16 operands
     that start 2 bytes off a 16-byte boundary, which must take the element
-    loader. Tolerances are those of the path-shape checks."""
+    loader; then a negative scale and scale 0. Tolerances are those of the
+    path-shape checks."""
     import torch
 
     from fatezero_tpu_torch.ops import flash_attention as FA
@@ -519,14 +541,6 @@ def check_forward_edges():
                                   q, k, v, scale, f"d={d} Sq={sq} Skv={skv} {dtype}")
                     n += 1
 
-    # the same storage one element on: contiguous, but 2 bytes off the boundary
-    def shifted(t):
-        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
-        out = buf[1:1 + t.numel()].view(t.shape)
-        out.copy_(t)
-        assert out.is_contiguous() and out.data_ptr() % 16 == 2
-        return out
-
     paths = set()
     for d, sq, skv in [(40, 300, 77), (80, 256, 129), (160, 256, 200)]:
         scale = d**-0.5
@@ -546,15 +560,96 @@ def check_forward_edges():
                     raise AssertionError(f"a misaligned operand took the {plan['loader']} loader")
             three_kernels(*folded, *merged, scale, f"d={d} Sq={sq} Skv={skv} operand {which} off a 16-byte boundary")
             n += 1
-    # K1b scales q before the product, so it alone takes a scale that is not positive
-    for scale in (-(d**-0.5), 0.0):
-        ref_b = FV.flash_bf16_reference(qf, kf, vf, scale, FV.K1B_BLOCK_KV)
-        hold("K1b", FV.flash_bf16(qf, kf, vf, scale), ref_b, 2**-7 * ref_b.float().abs().max().item() + 1e-4,
-             f"d={d} Sq={sq} Skv={skv} scale={scale}")
+    # a negative scale (K1 and K1c launch with -q and -scale) and scale 0 (a
+    # uniform softmax over the keys, the ragged tail's masked ones excluded)
+    for d in EDGE_D:
+        for sq, skv in [(300, 77), (256, 129)]:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.randn(rows, s, heads * d, device="cuda", generator=gen).to(dtype)
+                           for s in (sq, skv, skv))
+                for scale in (-(d**-0.5), 0.0):
+                    three_kernels(q[..., :d].contiguous(), k[..., :d].contiguous(), v[..., :d].contiguous(),
+                                  q, k, v, scale, f"d={d} Sq={sq} Skv={skv} {dtype} scale={scale}")
+                    n += 1
     torch.cuda.synchronize()
     log(f"[edges] {n} shapes x (K1, K1+lse, K1b, K1c) within tolerance; worst errors "
         + " ".join(f"{key}={err:.3e}" for key, err in worst.items())
         + f"; misaligned operands took {sorted(paths)}")
+
+
+def check_backward_edges():
+    """K1 with its log-sum-exp, K2 and K3 against flash_bwd_reference and plain
+    autograd through xla_attention where their blocks and rings can break:
+    query counts around the 64-row tiles, KV lengths around them (and the 77
+    text tokens), every head dim, fp32 and bf16; a negative scale; then bf16
+    operands that start 2 bytes off a 16-byte boundary (each of q, k, v, o
+    and dO in turn) or a head dim that is no multiple of 8, which must take
+    the element loader. Tolerances are check_training_kernels'."""
+    import torch
+
+    from fatezero_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = 2
+    worst = {}
+
+    def hold(q, k, v, o, do, scale, what):
+        dtype = q.dtype
+        lse = FA.flash_forward(q, k, v, scale, with_lse=True)[1]
+        dq = FA.flash_dq(q, k, v, o, lse, do, scale)
+        dk, dv = FA.flash_dkv(q, k, v, o, lse, do, scale)
+        refs = FA.flash_bwd_reference(q, k, v, o, lse, do, scale)
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        grads = torch.autograd.grad(FA.xla_attention(qr, kr, vr, scale), (qr, kr, vr), do)
+        for key, got, ref, auto in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, grads):
+            for against, r in (("reference", ref), ("autograd", auto)):
+                r = r.detach().float()
+                big = r.abs().max().item()
+                tol = 1e-4 * max(1.0, big) if dtype == torch.float32 else 2**-6 * big + 1e-4
+                err = (got.float() - r).abs().max().item()
+                if not err <= tol:
+                    raise AssertionError(f"{key} disagrees with the {against} at {what}: {err} > {tol}")
+                worst[key] = max(worst.get(key, 0.0), err)
+
+    def operands(sq, skv, d, dtype):
+        q, k, v, do = (torch.randn(rows, s, d, device="cuda", generator=gen).to(dtype) for s in (sq, skv, skv, sq))
+        return q, k, v, do
+
+    n = 0
+    for d in EDGE_D:
+        scale = d**-0.5
+        for sq in EDGE_BWD_SQ:
+            for skv in EDGE_BWD_SKV:
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v, do = operands(sq, skv, d, dtype)
+                    o = FA.flash_forward(q, k, v, scale)[0]
+                    hold(q, k, v, o, do, scale, f"d={d} Sq={sq} Skv={skv} {dtype}")
+                    n += 1
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = operands(129, 77, d, dtype)
+            o = FA.flash_forward(q, k, v, -scale)[0]
+            hold(q, k, v, o, do, -scale, f"d={d} Sq=129 Skv=77 {dtype} scale={-scale}")
+            n += 1
+
+    paths = set()
+    for d, sq, skv, which in [(40, 300, 77, w) for w in range(5)] + [(80, 129, 200, w) for w in range(5)] + \
+            [(160, 65, 129, w) for w in range(5)] + [(36, 129, 77, None)]:
+        scale = d**-0.5
+        q, k, v, do = operands(sq, skv, d, torch.bfloat16)
+        o = FA.flash_forward(q, k, v, scale)[0]
+        ops = [shifted(t) if i == which else t for i, t in enumerate((q, k, v, o, do))]
+        for kind in ("dq", "dkv"):
+            plan = FA.flash_bwd_plan(kind, *ops)
+            paths.add(took(plan, FA.bwd_kernel_plan(kind, d, torch.bfloat16, aligned=which is None)))
+            if plan["loader"] != "element":
+                raise AssertionError(f"{kind} with operand {which} off a 16-byte boundary, d={d}, took the "
+                                     f"{plan['loader']} loader")
+        hold(*ops, scale, f"d={d} Sq={sq} Skv={skv} operand {which} off a 16-byte boundary")
+        n += 1
+    torch.cuda.synchronize()
+    log(f"[bwd edges] {n} shapes x (K2, K3) within tolerance of flash_bwd_reference and autograd; worst errors "
+        + " ".join(f"{key}={err:.3e}" for key, err in worst.items())
+        + f"; misaligned or odd-width operands took {sorted(paths)}")
 
 
 def log_k1_paths(calls):
@@ -732,7 +827,8 @@ def main() -> int:
     phase("K4 vs _ln_math", lambda: check_layer_norm(k4))
     phase("K1b vs plain (flash-variants shapes)", lambda: check_k1b(k1b))
     phase("K1c vs plain (kernel-boundary site, cross shapes)", lambda: check_k1c(k1c))
-    phase("K1, K1b, K1c vs plain (tile-edge shapes, misaligned operands)", check_forward_edges)
+    phase("K1, K1b, K1c vs plain (tile-edge shapes, misaligned operands, scales)", check_forward_edges)
+    phase("K2, K3 vs plain and autograd (tile-edge shapes, misaligned operands)", check_backward_edges)
 
     # the edit at a small size, through the kernels on the card, against the
     # plain versions on the CPU: same seed, same weights and inputs

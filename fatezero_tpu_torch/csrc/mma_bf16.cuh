@@ -7,8 +7,8 @@
 // so the accumulators of two neighbouring n-tiles are the A operand of the next
 // product without any shuffle (the FlashAttention-2 register layout).
 //
-// The forward kernels (flash_fwd.cuh) also take from here the pieces of their
-// shared-memory pipeline: 16-byte cp.async copies with commit / wait groups,
+// The flash kernels (flash_fwd.cuh, flash_bwd.cu) also take from here the
+// pieces of their shared-memory pipeline: 16-byte cp.async copies with commit / wait groups,
 // ldmatrix fragment loads (plain for row-major A and for B stored [n][k],
 // .trans for B stored [k][n]) and the one-instruction exp2.
 #pragma once
@@ -29,51 +29,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// (a, b) -> bf16 pairs hi and lo with hi + lo = (a, b) to ~16 mantissa bits
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat16 ha = __float2bfloat16(a), hb = __float2bfloat16(b);
-  hi = pack_bf16(__bfloat162float(ha), __bfloat162float(hb));
-  lo = pack_bf16(a - __bfloat162float(ha), b - __bfloat162float(hb));
-}
-
-// A fragment of k-step kk from a row-major bf16 tile (16 rows from `tile`, row stride `ld`)
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld, int kk,
-                                       int g, int t) {
-  a[0] = ld_pair(tile + g * ld + kk * 16 + 2 * t);
-  a[1] = ld_pair(tile + (g + 8) * ld + kk * 16 + 2 * t);
-  a[2] = ld_pair(tile + g * ld + kk * 16 + 8 + 2 * t);
-  a[3] = ld_pair(tile + (g + 8) * ld + kk * 16 + 8 + 2 * t);
-}
-
-// A operand (k-step kk of 16 columns) from fp32 accumulators c[2kk], c[2kk+1],
-// split into hi and lo bf16 terms
-__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4], const float (&c0)[4],
-                                        const float (&c1)[4]) {
-  split_bf16(c0[0], c0[1], hi[0], lo[0]);
-  split_bf16(c0[2], c0[3], hi[1], lo[1]);
-  split_bf16(c1[0], c1[1], hi[2], lo[2]);
-  split_bf16(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// (a, b) >= 0 -> hi by truncation and lo = (a, b) - hi rounded, again ~16 mantissa
-// bits, in one byte permute, two masks, two subtractions and one conversion
-// where split_bf16 takes four conversions (which run at a fraction of the
-// rate): the forward kernels' split of the probabilities
+// (a, b) -> bf16 pairs hi and lo with hi + lo = (a, b) to ~16 mantissa bits:
+// hi by truncation, lo = (a, b) - hi rounded, in one byte permute, two masks,
+// two subtractions and one conversion, where rounding both terms takes four
+// conversions (which run at a fraction of the rate). Exact for either sign:
+// the truncated upper half keeps the sign and exponent, so a - hi is the
+// dropped low mantissa bits, exact in fp32. The forward kernels' split of the
+// probabilities, and the backward's of P and of the signed dS.
 __device__ __forceinline__ void split_bf16_trunc(float a, float b, uint32_t& hi, uint32_t& lo) {
   const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
   hi = __byte_perm(ua, ub, 0x7632);  // the upper halves of a and b, a's in the low half
   lo = pack_bf16(a - __uint_as_float(ua & 0xffff0000u), b - __uint_as_float(ub & 0xffff0000u));
 }
 
+// the A operand of a k-step from the fp32 accumulators of two neighbouring
+// n-tiles c0, c1, split so
 __device__ __forceinline__ void split_a_trunc(uint32_t (&hi)[4], uint32_t (&lo)[4], const float (&c0)[4],
                                               const float (&c1)[4]) {
   split_bf16_trunc(c0[0], c0[1], hi[0], lo[0]);
@@ -90,7 +65,7 @@ __device__ __forceinline__ void round_a(uint32_t (&a)[4], const float (&c0)[4], 
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// ---- shared-memory pipeline pieces (forward kernels)
+// ---- shared-memory pipeline pieces
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

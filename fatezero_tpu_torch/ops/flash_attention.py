@@ -19,6 +19,7 @@ the same sites carry gradients.
   points choose for a call (CUDA cores or tensor cores, which tile loader,
   tile sizes, ring stages, shared bytes); ``flash_forward_plan`` asks the
   built library the same question, so a run can show the two agree.
+  ``bwd_kernel_plan`` and ``flash_bwd_plan`` do the same for K2 and K3.
 * ``fused_attention`` is the dispatch rule of the JAX package: 256 queries or
   more go to ``flash_attention``; fewer go to the plain math on any device.
 """
@@ -53,7 +54,22 @@ WG_BAR_BYTES = 128
 SMEM_LIMIT = 232448
 BQ = 32
 BK = 64
-# what the C entry points report in plan[0] and plan[1] (fz_flash_fwd_plan)
+# csrc/flash_bwd.cu's constants (the same test holds these to that file)
+BWD_SMALL_DK = 5
+BWD_NARROW_DK = 3
+BWD_STAGES_SMALL = 3
+BWD_STAGES_LARGE = 2
+DKV_STAGES = 3
+DQ_WARPS = 8
+DQ_BK = 64
+DKV_WARPS_NARROW = 8
+DKV_WARPS = 4
+DKV_BQ_NARROW = 64
+DKV_BQ_SMALL = 32
+DKV_BQ_LARGE = 16
+F_ROWS = 32
+F_TILE = 64
+# what the C entry points report in plan[0] and plan[1] (fz_flash_fwd_plan, fz_flash_bwd_plan)
 PATHS = ("fma", "mma.sync", "wgmma")
 LOADERS = ("element", "staged", "async")
 
@@ -98,6 +114,45 @@ def kernel_plan(d: int, dv: int, dtype: torch.dtype, aligned: bool = True, merge
     else:
         smem = 2 * (16 * warps * qs + stages * MMA_BK * (qs + vs))
     return dict(path="wgmma" if wgmma else "mma.sync", loader=loader, block_q=16 * warps, block_kv=MMA_BK, stages=stages, smem_bytes=smem)
+
+
+def bwd_kernel_plan(kernel: str, d: int, dtype: torch.dtype, aligned: bool = True) -> dict:
+    """Which backward kernel a call takes: the C dispatch of csrc/flash_bwd.cu in Python.
+
+    `kernel` is "dq" (K2) or "dkv" (K3); `aligned` says that q, k, v, o and dO
+    all start on 16-byte boundaries. Returns `kernel_plan`'s keys: path ("fma"
+    for fp32, else "mma.sync"), loader ("async": 16-byte cp.async; "element":
+    misaligned operands or a d that is no multiple of 8), block_q and block_kv
+    (K2 owns block_q queries and streams tiles of block_kv keys, K3 owns
+    block_kv keys and streams tiles of block_q queries), ring stages and
+    dynamic shared bytes.
+    """
+    if kernel not in ("dq", "dkv"):
+        raise ValueError(f"the backward kernels are dq and dkv, got {kernel}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"the flash kernels take fp32 or bf16, got {dtype}")
+    if d < 1 or d > MAX_HEAD_DIM:
+        raise ValueError(f"no flash backward kernel takes d {d}")
+    if dtype == torch.float32:
+        if kernel == "dq":
+            smem = 4 * (2 * F_ROWS * (d + 1) + 2 * F_TILE * (d + 1) + F_ROWS * F_TILE)
+            return dict(path="fma", loader="element", block_q=F_ROWS, block_kv=F_TILE, stages=1, smem_bytes=smem)
+        smem = 4 * (2 * F_ROWS * (d + 1) + 2 * F_TILE * (d + 1) + 2 * F_ROWS * F_TILE + 2 * F_TILE)
+        return dict(path="fma", loader="element", block_q=F_TILE, block_kv=F_ROWS, stages=1, smem_bytes=smem)
+    dk = 3 if d <= 40 else 5 if d <= 80 else 10  # 16-wide k-steps of the head dim
+    small, narrow = dk <= BWD_SMALL_DK, dk <= BWD_NARROW_DK
+    qs = 16 * dk + MMA_PAD
+    loader = "async" if aligned and d % 8 == 0 else "element"
+    if kernel == "dq":
+        stages = BWD_STAGES_SMALL if small else BWD_STAGES_LARGE
+        bq, bk = 16 * DQ_WARPS, DQ_BK
+        smem = 2 * (2 * bq * qs + stages * 2 * bk * qs) + 4 * bq
+    else:  # each ring slot holds Q, dO and O
+        stages = DKV_STAGES
+        bq = DKV_BQ_NARROW if narrow else DKV_BQ_SMALL if small else DKV_BQ_LARGE
+        bk = 16 * (DKV_WARPS_NARROW if narrow else DKV_WARPS)
+        smem = 2 * (2 * bk * qs + stages * (3 * bq * qs + 4 * bq))
+    return dict(path="mma.sync", loader=loader, block_q=bq, block_kv=bk, stages=stages, smem_bytes=smem)
 
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -205,13 +260,46 @@ def flash_forward_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dic
     return library_plan("flash_fwd.cu", "fz_flash_fwd_plan", q, k, v, q.shape[2], v.shape[2])
 
 
+def flash_bwd_plan(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                   do: torch.Tensor) -> dict:
+    """What `flash_dq` ("dq") or `flash_dkv` ("dkv") launches for these CUDA
+    operands, from the built library (`bwd_kernel_plan`'s keys)."""
+    _check(q, k, v, o, do)
+    fn = csrc.load("flash_bwd.cu").fz_flash_bwd_plan
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    d = q.shape[2]
+    err = fn(1 if kernel == "dkv" else 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), d,
+             _DTYPES[q.dtype], out)
+    if err != 0:
+        raise RuntimeError(f"fz_flash_bwd_plan refused {kernel}, d {d}, {q.dtype} with CUDA error {err}")
+    return dict(path=PATHS[out[0]], loader=LOADERS[out[1]], block_q=out[2], block_kv=out[3], stages=out[4],
+                smem_bytes=out[5])
+
+
 def _check_scale(scale: float) -> None:
-    """K1 and K1c take the running max of the unscaled scores, which is the max
-    of the scaled ones only for a positive scale (attention's d**-0.5). Their
-    wrappers refuse any other scale on either device, so that the card and the
-    CPU compute one function; the JAX kernels scale first and take any."""
-    if not scale > 0:
-        raise ValueError(f"K1 and K1c take a positive scale, got {scale}")
+    """K1 and K1c take any scale but NaN, on either device, as the JAX kernels do."""
+    if scale != scale:
+        raise ValueError(f"K1 and K1c take a scale that is a number, got {scale}")
+
+
+def _positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
+    """(q, scale) with the same product q k^T * scale and a positive scale.
+
+    K1 and K1c take the running max of the unscaled scores, which is the max
+    of the scaled ones only for a positive scale, and their C entry points
+    refuse any other. q k^T * scale = (-q) k^T * (-scale), and negation is
+    exact in bf16 and fp32, so a negative scale launches with -q and -scale
+    and gives the same output and log-sum-exp. At scale 0 every weight is 1
+    (a uniform softmax over the keys); the kernels would also weigh the ragged
+    KV tail's masked keys there, so q becomes zeros and the scale 1, whose
+    scores are all 0 as well."""
+    if scale > 0:
+        return q, scale
+    if scale < 0:
+        return -q, -scale
+    return torch.zeros_like(q), 1.0
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -225,7 +313,7 @@ def flash_forward(
 
     On a CUDA tensor this launches K1 or raises; a CPU tensor takes the plain
     version. The log-sum-exp is written only when asked for (differentiation).
-    The scale must be positive.
+    Any scale but NaN.
     """
     _check_scale(scale)
     if not q.is_cuda:
@@ -233,6 +321,7 @@ def flash_forward(
             return attention_with_lse(q, k, v, scale)
         return xla_attention(q, k, v, scale), None
     _check(q, k, v)
+    q, scale = _positive_scale(q, scale)
     fn = _fwd_fn()
     b, sq, d = q.shape
     skv, dv = k.shape[1], v.shape[2]

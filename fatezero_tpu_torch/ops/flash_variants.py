@@ -25,7 +25,9 @@ import functools
 import torch
 
 from fatezero_tpu_torch import csrc
-from fatezero_tpu_torch.ops.flash_attention import _DTYPES, MAX_HEAD_DIM, _check_scale, _stream, library_plan, xla_attention
+from fatezero_tpu_torch.ops.flash_attention import (
+    _DTYPES, MAX_HEAD_DIM, _check_scale, _positive_scale, _stream, library_plan, xla_attention,
+)
 
 K1B_BLOCK_KV = 64  # csrc/flash_fwd.cuh MMA_BK: the KV tile K1b rounds P in
 NEG_INF = -1e30  # the kernels' mask value
@@ -119,13 +121,14 @@ def flash_merged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
     """K1c: softmax per head over merged-head operands, [R, Sq, H*D] in q's dtype.
 
     q [R, Sq, H*D], k/v [R, Skv, H*D]; head h is columns h*D..(h+1)*D-1. fp32
-    or bf16, D <= 160, a positive scale. A CUDA tensor launches K1c or raises;
-    a CPU tensor takes `merged_attention_reference`.
+    or bf16, D <= 160, any scale but NaN. A CUDA tensor launches K1c or
+    raises; a CPU tensor takes `merged_attention_reference`.
     """
     _check_scale(scale)
     if not q.is_cuda:
         return merged_attention_reference(q, k, v, scale, heads)
     _check("flash_merged", q, k, v)
+    q, scale = _positive_scale(q, scale)
     r, sq, hd = q.shape
     d = hd // heads if heads > 0 else 0
     if d < 1 or d * heads != hd or v.shape[2] != hd or d > MAX_HEAD_DIM or r * heads > 65535:

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Read the flash kernels' times in several trees of this repository, in turns, on one card.
 
-    python3 scripts/ab_flash_kernels.py [--phases] [--out FILE] TREE [TREE ...]
+    python3 scripts/ab_flash_kernels.py [--phases] [--backward] [--out FILE] TREE [TREE ...]
 
 Each TREE is the root of a checkout (for example `.` and a parent commit
 unpacked with `git archive`). For each, in the order given, a fresh process
 builds that tree's kernels and runs `chip_smoke.py`'s kernel checks
 (`check_edit_k1`, `check_training_kernels`, `check_layer_norm`, `check_k1b`,
 `check_k1c`), then prints one line of totals: the bf16 ms summed over each
-kernel's path shapes, as in the smoke's JSON line. With `--phases` it then
+kernel's path shapes, as in the smoke's JSON line, and the SDPA backward's
+sum read beside K2 and K3. `--backward` runs `check_training_kernels` alone
+(K1 with its LSE, K2, K3 and the SDPA backward at the six tuning sites), the
+quick way to A/B the backward kernels. With `--phases` it then
 runs the smoke's full-width 10-step edit three times and four tuning steps
 (`run_slice`, `tuning_setup`), whose `[phase]` lines give the seconds. Give a
 tree twice (parent, change, change, parent) so that warm-up and clocks favour
@@ -30,9 +33,14 @@ from fatezero_tpu_torch import csrc
 torch.backends.cuda.matmul.allow_tf32 = False
 csrc.build_all(C.KERNEL_SOURCES)
 t = [C.Totals() for _ in range(6)]
-C.check_edit_k1(t[0]); C.check_training_kernels(t[1], t[2]); C.check_layer_norm(t[3])
-C.check_k1b(t[4]); C.check_k1c(t[5])
-print('[totals] ' + json.dumps(dict(zip(['K1', 'K2', 'K3', 'K4', 'K1b', 'K1c'], [x.ms for x in t]))), flush=True)
+if BACKWARD:
+    C.check_training_kernels(t[1], t[2])
+    print('[totals] ' + json.dumps({'K2': t[1].ms, 'K3': t[2].ms, 'SDPA bwd': t[1].library_ms}), flush=True)
+else:
+    C.check_edit_k1(t[0]); C.check_training_kernels(t[1], t[2]); C.check_layer_norm(t[3])
+    C.check_k1b(t[4]); C.check_k1c(t[5])
+    print('[totals] ' + json.dumps(dict(zip(['K1', 'K2', 'K3', 'K4', 'K1b', 'K1c', 'SDPA bwd'],
+                                            [x.ms for x in t] + [t[1].library_ms]))), flush=True)
 if PHASES:
     from fatezero_tpu_torch.models.loader import load_models
     device = torch.device('cuda')
@@ -51,8 +59,8 @@ if PHASES:
 
 
 def main(trees) -> int:
-    phases = "--phases" in trees
-    trees = [t for t in trees if t != "--phases"]
+    phases, backward = "--phases" in trees, "--backward" in trees
+    trees = [t for t in trees if t not in ("--phases", "--backward")]
     out = os.devnull
     if "--out" in trees:
         i = trees.index("--out")
@@ -68,7 +76,7 @@ def main(trees) -> int:
         for tree in trees:
             print(f"==== {tree}", flush=True)
             summary.write(f"==== {tree}\n")
-            child = subprocess.Popen([sys.executable, "-c", f"PHASES = {phases}\n" + CHILD], cwd=tree,
+            child = subprocess.Popen([sys.executable, "-c", f"PHASES = {phases}\nBACKWARD = {backward}\n" + CHILD], cwd=tree,
                                      stdout=subprocess.PIPE, text=True)
             for line in child.stdout:
                 print(line, end="", flush=True)

@@ -45,6 +45,18 @@ def test_flash_matches_jax_kernel(sq, skv, d, wide_v):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("sq,skv,d", [(256, 77, 40), (300, 300, 80)])
+def test_negative_scale_matches_jax_kernel(sq, skv, d):
+    """A negative scale, which the JAX kernel takes: on the card the wrapper
+    launches K1 with -q and -scale (chip_smoke.py holds that to the plain
+    version), on the CPU it is the plain version."""
+    q, k, v = _qkv((2, sq, d), (2, skv, d), (2, skv, d), seed=sq + skv + 1)
+    scale = -(d**-0.5)
+    ref = JFA.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    got = FA.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
 @pytest.mark.parametrize("s", [64, 256])
 def test_fused_attention_5d_frame_broadcast(s, monkeypatch):
     """5-D [b, f, h, s, d] queries against a frame-broadcast [b, 1, h, 77, d]

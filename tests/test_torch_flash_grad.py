@@ -85,14 +85,17 @@ def test_no_graph_without_grad():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_backward_kernels_match_plain(dtype):
     """K1 with LSE, K2 and K3 against their plain versions on the card, and the
-    Function launching all three under autograd."""
+    Function launching all three under autograd: path-like shapes, then the
+    tile-edge shapes of chip_smoke.py's check_backward_edges (query counts and
+    KV lengths around the 64-row tiles), then bf16 operands each in turn 2
+    bytes off a 16-byte boundary."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K1-K3 are CUDA kernels with no CPU mode)")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # path-like shapes, then tile-edge shapes of the forward's KV ring (chip_smoke.py)
     shapes = [(4, 300, 77, 40), (2, 1024, 2048, 80), (2, 256, 512, 160)]
-    shapes += [(2, 300, skv, d) for d in (40, 80, 160) for skv in (1, 63, 64, 65, 129, 200)]
+    shapes += [(2, sq, skv, d) for d in (40, 80, 160) for sq in (1, 63, 64, 65, 127, 129, 300)
+               for skv in (1, 63, 64, 65, 77, 129, 200)]
     for rows, sq, skv, d in shapes:
         q, k, v, do = (torch.randn(rows, n, d, device="cuda", generator=gen).to(dt) for n in (sq, skv, skv, sq))
         scale = d**-0.5
@@ -113,3 +116,21 @@ def test_cuda_backward_kernels_match_plain(dtype):
             # the largest gradient (both round the same fp32 value)
             tol = 1e-4 * max(1.0, r.abs().max().item()) if dt == torch.float32 else 2**-7 * r.abs().max().item() + 1e-4
             torch.testing.assert_close(g.float(), r, atol=tol, rtol=0)
+    if dt != torch.bfloat16:
+        return
+
+    def shifted(t):  # the same values, contiguous, 2 bytes off the boundary
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        out = buf[1:1 + t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+
+    for d in (40, 80, 160):
+        q, k, v, do = (torch.randn(2, n, d, device="cuda", generator=gen).to(dt) for n in (129, 77, 77, 129))
+        o, lse = FA.flash_forward(q, k, v, d**-0.5, with_lse=True)
+        for which in range(5):
+            ops = [shifted(t) if i == which else t for i, t in enumerate((q, k, v, o, do))]
+            got = (FA.flash_dq(*ops[:4], lse, ops[4], d**-0.5), *FA.flash_dkv(*ops[:4], lse, ops[4], d**-0.5))
+            for g, r in zip(got, FA.flash_bwd_reference(q, k, v, o, lse, do, d**-0.5)):
+                r = r.float()
+                torch.testing.assert_close(g.float(), r, atol=2**-7 * r.abs().max().item() + 1e-4, rtol=0)

@@ -1,12 +1,13 @@
-"""`kernel_plan` (fatezero_tpu_torch.ops.flash_attention): the Python mirror of
-the forward kernels' C dispatch (csrc/flash_fwd*.cu, csrc/flash_fwd.cuh).
+"""`kernel_plan` and `bwd_kernel_plan` (fatezero_tpu_torch.ops.flash_attention):
+the Python mirrors of the flash kernels' C dispatch (csrc/flash_fwd*.cu,
+csrc/flash_fwd.cuh; csrc/flash_bwd.cu).
 
 No kernel runs here: the card holds each kernel to its plain version and the
 mirror to the built library's own answer (chip_smoke.py). These tests hold
 
 * every shape the smoke and the probes drive to an asynchronous tensor-core
   path that fits one block's shared memory;
-* the mirror's constants to the ones parsed from the header, so it cannot drift;
+* the mirrors' constants to the ones parsed from the sources, so they cannot drift;
 * misaligned or odd-width operands to the element loader, fp32 to its paths;
 * the wrappers' CPU results to the plain versions, bit for bit (atol 0): on a
   CPU tensor a wrapper is its plain version and nothing else.
@@ -30,6 +31,7 @@ from fatezero_tpu_torch.scripts import bench_flash_variants as TV  # noqa: E402
 torch.set_num_threads(1)
 BF16, F32 = torch.bfloat16, torch.float32
 HEADER = open(os.path.join(REPO, "fatezero_tpu_torch", "csrc", "flash_fwd.cuh")).read()
+BWD_SOURCE = open(os.path.join(REPO, "fatezero_tpu_torch", "csrc", "flash_bwd.cu")).read()
 
 # (id, d, dv, merged, bf16_p) of every bf16 shape the smoke's checks and the probes drive
 PATH_SHAPES = (
@@ -120,19 +122,83 @@ def test_fp32_and_wide_v_plans():
 
 @pytest.mark.parametrize("bad", [0.0, -0.1, float("nan")])
 def test_k1_and_k1c_refuse_a_scale_that_is_not_positive_on_the_cpu_too(bad):
-    """K1 and K1c take the running max before the scaling, so their wrappers
-    refuse a scale that is not positive, on a CPU tensor as on the card (the
-    plain versions and the JAX kernels, which scale first, take any). K1b
-    scales q before the product and takes any scale."""
+    """K1 and K1c take the running max before the scaling; their wrappers hand
+    the kernels a positive scale (-q and -scale for a negative one, zero q and
+    scale 1 for 0), so like the JAX kernels they take any scale but NaN, which
+    they refuse on a CPU tensor as on the card. On the CPU a negative or zero
+    scale is the plain version's, bit for bit. K1b scales q before the product
+    and takes any scale."""
     q, k, v = _randn(0, (1, 256, 16), (1, 8, 16), (1, 8, 16))
-    for call in (lambda: FA.flash_forward(q, k, v, bad), lambda: FA.flash_forward(q, k, v, bad, with_lse=True),
-                 lambda: FA.flash_attention(q, k, v, bad), lambda: FA.fused_attention(q, k, v, bad),
-                 lambda: FV.flash_merged(q, k, v, bad, 2)):
-        with pytest.raises(ValueError, match="positive scale"):
-            call()
-    if bad == bad:  # not NaN
-        torch.testing.assert_close(FV.flash_bf16(q, k, v, bad), FV.flash_bf16_reference(q, k, v, bad, FV.K1B_BLOCK_KV),
-                                   atol=0, rtol=0)
+    calls = (lambda: FA.flash_forward(q, k, v, bad)[0], lambda: FA.flash_forward(q, k, v, bad, with_lse=True)[1],
+             lambda: FA.flash_attention(q, k, v, bad), lambda: FA.fused_attention(q, k, v, bad),
+             lambda: FV.flash_merged(q, k, v, bad, 2))
+    if bad != bad:
+        for call in calls:
+            with pytest.raises(ValueError, match="a number"):
+                call()
+        return
+    refs = (FA.xla_attention(q, k, v, bad), FA.attention_with_lse(q, k, v, bad)[1], FA.xla_attention(q, k, v, bad),
+            FA.xla_attention(q, k, v, bad), FV.merged_attention_reference(q, k, v, bad, 2))
+    for call, ref in zip(calls, refs):
+        torch.testing.assert_close(call(), ref, atol=0, rtol=0)
+    torch.testing.assert_close(FV.flash_bf16(q, k, v, bad), FV.flash_bf16_reference(q, k, v, bad, FV.K1B_BLOCK_KV),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("site", C.TRAIN_SITES, ids=[s[0] for s in C.TRAIN_SITES])
+def test_tuning_sites_plan_the_async_backward(site, kernel):
+    """K2 and K3 at every tuning site: the tensor cores, the cp.async ring,
+    one block's shared memory; K2 owns 128 queries a block, K3 128 keys at
+    d 40 and 64 above."""
+    d = site[1]
+    plan = FA.bwd_kernel_plan(kernel, d, BF16)
+    assert plan["path"] == "mma.sync" and plan["loader"] == "async", plan
+    assert plan["smem_bytes"] <= FA.SMEM_LIMIT
+    assert plan["stages"] == (FA.DKV_STAGES if kernel == "dkv" else FA.BWD_STAGES_SMALL if d <= 80 else FA.BWD_STAGES_LARGE)
+    assert plan["block_q" if kernel == "dq" else "block_kv"] == (128 if kernel == "dq" or d <= 40 else 64)
+
+
+@pytest.mark.parametrize("name", [
+    "BWD_SMALL_DK", "BWD_NARROW_DK", "BWD_STAGES_SMALL", "BWD_STAGES_LARGE", "DQ_WARPS", "DQ_BK",
+    "DKV_STAGES", "DKV_WARPS_NARROW", "DKV_WARPS", "DKV_BQ_NARROW", "DKV_BQ_SMALL",
+    "DKV_BQ_LARGE", "F_ROWS", "F_TILE",
+])
+def test_bwd_constants_equal_the_sources(name):
+    found = re.findall(rf"^constexpr int {name} = (\d+);", BWD_SOURCE, re.M)
+    if name == "F_ROWS":  # F_THREADS / ROW_LANES
+        found = [str(int(re.search(r"^constexpr int F_THREADS = (\d+);", BWD_SOURCE, re.M).group(1))
+                     // int(re.search(r"^constexpr int ROW_LANES = (\d+);", BWD_SOURCE, re.M).group(1)))]
+    assert len(found) == 1, f"{name}: expected one `constexpr int {name} = N;` in flash_bwd.cu, found {found}"
+    assert int(found[0]) == getattr(FA, name)
+
+
+def test_bwd_plan_geometry_follows_the_source_formulas():
+    for expr in ("STAGE = 2 * BK * QS;", "SMEM = (2 * BQ * QS + STAGES * STAGE) * 2 + BQ * 4;",
+                 "STAGE = 3 * BQ * QS + 4 * BQ;", "SMEM = (2 * BK * QS + STAGES * STAGE) * 2;",
+                 "QS = DK * 16 + MMA_PAD;"):
+        assert expr in BWD_SOURCE, expr
+    for expr in ("BK = WARPS * 16;", "WARPS = DK <= BWD_NARROW_DK ? DKV_WARPS_NARROW : DKV_WARPS;",
+                 "BQ = DQ_WARPS * 16;"):
+        assert expr in BWD_SOURCE, expr
+    assert FA.bwd_kernel_plan("dq", 40, BF16) == dict(path="mma.sync", loader="async", block_q=128, block_kv=64,
+                                                      stages=3, smem_bytes=2 * (2 * 128 * 56 + 3 * 2 * 64 * 56) + 512)
+    assert FA.bwd_kernel_plan("dkv", 40, BF16) == dict(path="mma.sync", loader="async", block_q=64, block_kv=128,
+                                                       stages=3, smem_bytes=2 * (2 * 128 * 56 + 3 * (3 * 64 * 56 + 256)))
+    assert FA.bwd_kernel_plan("dkv", 160, BF16) == dict(path="mma.sync", loader="async", block_q=16, block_kv=64,
+                                                        stages=3, smem_bytes=2 * (2 * 64 * 168 + 3 * (3 * 16 * 168 + 64)))
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("d,aligned", [(40, False), (80, False), (160, False), (36, True), (44, True), (1, True)])
+def test_bwd_misaligned_or_odd_width_plans_the_element_loader(kernel, d, aligned):
+    plan = FA.bwd_kernel_plan(kernel, d, BF16, aligned=aligned)
+    assert plan["path"] == "mma.sync" and plan["loader"] == "element", plan
+    fp32 = FA.bwd_kernel_plan(kernel, d, F32, aligned=aligned)
+    assert fp32["path"] == "fma" and fp32["smem_bytes"] <= FA.SMEM_LIMIT
+    for bad in (0, 161):
+        with pytest.raises(ValueError):
+            FA.bwd_kernel_plan(kernel, bad, BF16)
 
 
 def _randn(seed, *shapes):

@@ -118,6 +118,18 @@ def test_k1c_reference_matches_jax_kernel(jax_boundary, monkeypatch, sq, skv, d,
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=2e-5)
 
 
+def test_k1c_negative_scale_matches_jax_kernel(jax_boundary, monkeypatch):
+    """K1c at a negative scale, which the JAX kernel takes (the wrapper hands
+    the card -q and -scale)."""
+    monkeypatch.setenv("FZ_FLASH_INTERPRET", "1")
+    sq, skv, d, heads = 256, 77, 40, 2
+    q, k, v = _randn(np.random.RandomState(5), (2, sq, heads * d), (2, skv, heads * d), (2, skv, heads * d))
+    scale = -(d**-0.5)
+    ref = np.asarray(jax_boundary._fwd_call_merged(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, 1024, 4096, heads))
+    got = FV.flash_merged(*map(torch.from_numpy, (q, k, v)), scale, heads)
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("site", ["ship", "merged"])
 def test_boundary_site_matches_jax(jax_boundary, monkeypatch, site):
     monkeypatch.setenv("FZ_FLASH_INTERPRET", "1")
