@@ -30,7 +30,7 @@ from fatezero_tpu_torch.models.resnet import (
     ResnetBlockPseudo3D,
     UpsamplePseudo3D,
 )
-from fatezero_tpu_torch.ptp.context import AttnContext
+from fatezero_tpu_torch.ptp.context import MAX_CONTROLLED_TOKENS, AttnContext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,11 +166,15 @@ class UNetPseudo3DConditionModel(nn.Module):
         encoder_hidden_states: torch.Tensor,
         attn_ctx: Optional[AttnContext] = None,
         drop_replay_rows: int = 0,
-    ) -> torch.Tensor:
-        if drop_replay_rows:
-            raise NotImplementedError(
-                "drop_replay_rows serves the replay and inline edit modes, which are not ported yet"
-            )
+    ) -> Optional[torch.Tensor]:
+        """drop_replay_rows: the first N batch rows exist only to feed the
+        controller's stored or edited maps (the inversion replay of the edit).
+        No site above MAX_CONTROLLED_TOKENS queries is stored or edited, and
+        the up blocks' resolution only grows, so from the first up block past
+        that size those rows are sliced off. If every row is a replay row (a
+        capture-only forward) the rest is skipped and None is returned: the
+        caller reads ``attn_ctx.captured``. Where even the last up block is
+        controlled, nothing is dropped."""
         cfg = self.cfg
         b = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -193,7 +197,14 @@ class UNetPseudo3DConditionModel(nn.Module):
             x, res = run(self._down, block, x, temb, context, attn_ctx)
             res_stack.extend(res)
         x = run(self._mid, x, temb, context, attn_ctx)
+        drop = drop_replay_rows if attn_ctx is not None else 0
         for block in self.up_blocks:
+            if drop and x.shape[2] * x.shape[3] > MAX_CONTROLLED_TOKENS:
+                if drop >= b:
+                    return None  # capture-only: every controlled map is captured
+                x, temb, context = x[drop:], temb[drop:], context[drop:]
+                res_stack = [r[drop:] for r in res_stack]
+                drop = 0
             n = len(block.resnets)
             skips = res_stack[-n:][::-1]
             del res_stack[-n:]

@@ -1,7 +1,7 @@
 """Attention-controller contexts: what each controlled attention site calls.
 
-Counterpart of fatezero_tpu/ptp/context.py (the stored-payload subset). A
-context is a plain object handed to the UNet's forward. Every controlled
+Counterpart of fatezero_tpu/ptp/context.py. A context is a plain object
+handed to the UNet's forward. Every controlled
 site (at most 32x32 query tokens) calls either
 ``ctx.value_space_attention(...)`` (the probability-free fast path) or, when
 that returns None, ``ctx.process(probs, place, is_cross)`` on its
@@ -12,11 +12,14 @@ position counters line up with the capture.
   self sites' (q, k) (the inversion's capture).
 * ``EditContext`` consumes one step of that capture and rewrites the
   conditional row: prompt-to-prompt cross replace/refine/reweight in value
-  space, and the gated self swap from the stored (q, k).
+  space, and the gated, optionally masked self swap from the stored (q, k).
+* ``InlineEditContext`` serves the single-forward edit: batch row 0 is the
+  inversion replay, and the cond row is edited against row 0's attention at
+  each site.
 
-Maps are [b, f, heads, s, kv]; b = 1 at inversion and 2 (uncond, cond)
-under CFG, and only the cond row is stored or edited. The single-forward
-InlineEditContext waits for the inline edit mode.
+Maps are [b, f, heads, s, kv]; b = 1 at inversion, 2 (uncond, cond) under
+CFG and 3 (replay, uncond, cond) inline; only the cond row is stored or
+edited.
 """
 from __future__ import annotations
 
@@ -131,7 +134,7 @@ class EditParams:
     # per-step gate in {0, 1} (0-d tensor); when set it replaces
     # self_replace_active and the swap is computed every step and mixed by it
     self_gate: Optional[torch.Tensor] = None
-    # {s_tokens: [f, 1, s, 1]} blend masks for the self swap (blends: later)
+    # {s_tokens: [f, 1, s, 1]} blend masks for the self swap (1 = keep the live map)
     self_masks: Optional[Dict[int, torch.Tensor]] = None
     save_self_attention: bool = True
 
@@ -172,15 +175,139 @@ def replace_self(
     return m * attn_replace + (1.0 - m) * base
 
 
+def _cross_weights(p: EditParams, alpha_words: torch.Tensor, kv: int, dev):
+    """The value-space cross edit's [kv, kv] matrix m1 and per-token weight w2:
+
+        edited(P_cond) @ V = P_base @ (m1 @ V) + P_cond @ (w2 * V)
+
+    Refine: new = (P_base[:, mapper] * alpha + P_cond * (1-alpha)) * eq and
+    cond = new * aw + (1-aw) * P_cond, so m1 = E @ diag(alpha*eq*aw) with
+    E[i, n] = [mapper[n] == i] and w2 = (1-alpha)*eq*aw + (1-aw). Replace:
+    m1 = mapper * eq*aw and w2 = 1-aw."""
+    aw = alpha_words.float().reshape(-1).expand(kv)
+    eq = p.equalizer[0].float() if p.equalizer is not None else torch.ones(kv, device=dev)
+    if p.cross_edit_kind == "refine":
+        al = p.refine_alphas[0].float()
+        w1 = al * eq * aw
+        w2 = (1.0 - al) * eq * aw + (1.0 - aw)
+        E = (torch.arange(kv, device=dev)[:, None] == p.refine_mapper[0][None, :]).float()
+        return E * w1[None, :], w2
+    return p.mapper[0].float() * (eq * aw)[None, :], 1.0 - aw
+
+
+class InlineEditContext(StoreContext):
+    """Single-forward prompt-to-prompt: batch row 0 is the inversion replay.
+
+    The UNet runs once on [replay (source cond), edit uncond, edit cond]; at
+    every controlled site the cond row is edited against row 0's attention
+    of the same site. Not usable with self masks from the same step's cross
+    maps (the attention blend), which are complete only after the forward.
+    With `capture_for_blend` the cross sites materialise and store row 0's
+    maps in ``captured_inv`` and the cond row's in ``captured`` for the latent
+    blend; with `viz_size` the cross sites of that many queries do, for the
+    attention visualisation.
+    """
+
+    def __init__(
+        self,
+        params: EditParams,
+        alpha_words: torch.Tensor,
+        store_dtype=torch.bfloat16,
+        capture_for_blend: bool = False,
+        viz_size: Optional[int] = None,
+    ):
+        super().__init__(save_self_attention=False, store_dtype=store_dtype)
+        self.params = params
+        self.alpha_words = alpha_words
+        self.capture_for_blend = capture_for_blend
+        self.viz_size = viz_size
+        self.captured_inv: Dict[str, List[torch.Tensor]] = {k: [] for k in STORE_KEYS}
+
+    def _capture_cross(self, s: int) -> bool:
+        return self.capture_for_blend or (self.viz_size is not None and s == self.viz_size)
+
+    def value_space_attention(self, qh, kh, vh, scale, place, is_cross, video_shape, **site_info):
+        """The inline edit without materialised probabilities: every edit op is
+        linear in the probabilities along kv, so with row 0's P_rep
+
+            cross: out_cond = P_rep @ (m1 @ V_cond) + P_cond @ (w2 * V_cond)
+            self:  out_cond = g * (P_rep @ V_cond) + (1-g) * (P_cond @ V_cond)
+
+        Row 0's own output and the P_rep term come from one attention with
+        the values concatenated along d (a wide V). Returns None (materialise)
+        for cross sites whose maps are captured and for masked self swaps.
+        """
+        from fatezero_tpu_torch.ops.flash_attention import fused_attention
+
+        b, f = video_shape
+        if b != 3 or qh.shape[0] != 3:
+            return None
+        p = self.params
+        if is_cross and self._capture_cross(qh.shape[-2]):
+            return None
+        if not is_cross and p.self_masks is not None:
+            return None
+        d = qh.shape[-1]
+        if is_cross:
+            m1, w2 = _cross_weights(p, self.alpha_words, kh.shape[-2], qh.device)
+            v_c = vh[2]  # [1, h, kv, d] frame-broadcast cross values
+            v1 = torch.einsum("wn,xhnd->xhwd", m1.to(v_c.dtype), v_c)
+            rep2 = fused_attention(qh[0], kh[0], torch.cat([vh[0], v1], dim=-1), scale)
+            out_rep, term1 = rep2[..., :d], rep2[..., d:]
+            v2 = v_c * w2[None, None, :, None].to(v_c.dtype)
+            uc = fused_attention(qh[1:3], kh[1:3], torch.cat([vh[1:2], v2[None]], dim=0), scale)
+            out_unc, out_cond = uc[0], term1 + uc[1]
+        else:
+            if p.self_gate is not None:
+                g = p.self_gate
+            elif p.self_replace_active:
+                g = torch.tensor(1.0, device=qh.device)
+            else:  # no swap: three independent attentions
+                return fused_attention(qh, kh, vh, scale)
+            rep2 = fused_attention(qh[0], kh[0], torch.cat([vh[0], vh[2]], dim=-1), scale)
+            out_rep, swapped = rep2[..., :d], rep2[..., d:]
+            uc = fused_attention(qh[1:3], kh[1:3], vh[1:3], scale)
+            out_unc, out_live = uc[0], uc[1]
+            g = g.float().to(out_live.dtype)
+            out_cond = g * swapped + (1.0 - g) * out_live
+        return torch.stack([out_rep, out_unc, out_cond], dim=0)
+
+    def process(self, probs, place, is_cross):
+        if probs.shape[-2] > MAX_CONTROLLED_TOKENS or probs.shape[0] < 3:
+            return probs
+        base = probs[0]  # [f, h, s, kv]: the replay row's probabilities
+        if is_cross and self._capture_cross(probs.shape[-2]):
+            key = store_key(place, True)
+            self.captured_inv[key].append(probs[:1].to(self.store_dtype))
+            self.captured[key].append(probs[-1:].to(self.store_dtype))
+        rep, uncond, cond = probs[:1], probs[1:2], probs[2:]
+        if is_cross:
+            new = replace_cross(base, cond, self.params)
+            aw = self.alpha_words.to(cond.dtype)
+            cond = new * aw + (1.0 - aw) * cond
+        elif self.params.self_gate is not None or self.params.self_replace_active:
+            mask = None
+            if self.params.self_masks is not None:
+                mask = self.params.self_masks.get(probs.shape[-2])
+            swapped = replace_self(base, cond, mask)
+            if self.params.self_gate is not None:
+                g = self.params.self_gate.to(cond.dtype)
+                swapped = g * swapped + (1.0 - g) * cond
+            cond = swapped
+        return torch.cat([rep, uncond, cond], dim=0)
+
+
 class EditContext(StoreContext):
     """Consume one inversion step's capture and rewrite the cond row.
 
     ``injected[key][pos]`` are the inversion's cross maps ([1, f, h, s, kv]);
     ``injected_qk[key][pos]`` its self (q, k) pairs. Position counters follow
-    the visit order of the UNet. Cross sites always run in value space (the
-    live maps that blends and attention visualisation would read are not
-    needed on this slice); self sites run in value space from
-    ``injected_qk`` and otherwise materialise through ``process``.
+    the visit order of the UNet. With `value_space_cross` (the default here;
+    the pipeline always asks for it) cross sites run in value space, except
+    those with `materialize_cross_size` queries: the latent blend and the
+    attention visualisation read their live maps, so they materialise through
+    ``process``, which stores the cond row in ``captured``. Self sites run in
+    value space from ``injected_qk`` and otherwise materialise.
     """
 
     def __init__(
@@ -190,12 +317,16 @@ class EditContext(StoreContext):
         alpha_words: torch.Tensor,
         store_dtype=torch.bfloat16,
         injected_qk: Optional[Dict[str, List]] = None,
+        value_space_cross: bool = True,
+        materialize_cross_size: Optional[int] = None,
     ):
         super().__init__(save_self_attention=params.save_self_attention, store_dtype=store_dtype)
         self.injected = injected
         self.injected_qk = injected_qk
         self.params = params
         self.alpha_words = alpha_words
+        self.value_space_cross = value_space_cross
+        self.materialize_cross_size = materialize_cross_size
         self._pos = {k: 0 for k in STORE_KEYS}
         self._pos_qk = {k: 0 for k in STORE_KEYS}
 
@@ -204,35 +335,18 @@ class EditContext(StoreContext):
 
         The live cond probabilities enter the edit only through linear ops
         along kv (replace/refine mix, reweight, alpha-time-word mix), which
-        commute with @V:
+        commute with @V (_cross_weights):
 
             out_cond = base @ (m1 @ V_cond) + attention(q_c, k_c, V_cond * w2)
-
-        with m1 a [kv, kv] matrix and w2 a per-token weight.
         """
         from fatezero_tpu_torch.ops.flash_attention import fused_attention
 
-        p = self.params
         key = store_key(place, True)
         pos = self._pos[key]
         self._pos[key] = pos + 1
         base = self.injected[key][pos][0]  # [f, h, s, kv]
-
-        kv = kh.shape[-2]
-        dev = qh.device
-        aw = self.alpha_words.float().reshape(-1).expand(kv)
-        eq = p.equalizer[0].float() if p.equalizer is not None else torch.ones(kv, device=dev)
+        m1, w2 = _cross_weights(self.params, self.alpha_words, kh.shape[-2], qh.device)
         v_c = vh[-1]  # cond row's frame-broadcast values, [1, h, kv, d]
-        if p.cross_edit_kind == "refine":
-            al = p.refine_alphas[0].float()
-            w1 = al * eq * aw
-            w2 = (1.0 - al) * eq * aw + (1.0 - aw)
-            # E[i, n] = [mapper[n] == i]
-            E = (torch.arange(kv, device=dev)[:, None] == p.refine_mapper[0][None, :]).float()
-            m1 = E * w1[None, :]
-        else:  # replace: cond = base @ mapper * eq * aw + (1-aw) * P_cond
-            w2 = 1.0 - aw
-            m1 = p.mapper[0].float() * (eq * aw)[None, :]
         v1 = torch.einsum("wn,xhnd->xhwd", m1.to(v_c.dtype), v_c)  # [1, h, kv, d]
         term1 = torch.einsum("fhsw,xhwd->fhsd", base.to(v_c.dtype), v1)  # [f, h, s, d]
         v2 = v_c * w2[None, None, :, None].to(v_c.dtype)
@@ -254,6 +368,10 @@ class EditContext(StoreContext):
         live cond values. Cross sites go through _cross_value_space.
         """
         if is_cross:
+            if not self.value_space_cross or self.injected is None:
+                return None
+            if self.materialize_cross_size is not None and qh.shape[-2] == self.materialize_cross_size:
+                return None  # the blend and viz read these live maps
             return self._cross_value_space(qh, kh, vh, scale, place, video_shape)
         if self.injected_qk is None or self.save_self_attention:
             return None

@@ -3,9 +3,9 @@
 Counterpart of fatezero_tpu/ptp/controller.py. Builds, from the prompts and
 the prompt-to-prompt config, what the edit needs per step: the cross
 mapper (replace or refine), the optional reweight equalizer, the time/word
-alpha schedule and the self-replace step window. Arrays stay numpy; the
-pipeline moves them to its device. Spatial blends (blend_words) are not
-ported yet.
+alpha schedule, the self-replace step window and the two spatial blenders
+(ptp/spatial_blend.py). Arrays stay numpy; the pipeline moves them to its
+device.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import numpy as np
 
 from fatezero_tpu_torch.ptp.schedules import get_equalizer, get_time_words_attention_alpha
 from fatezero_tpu_torch.ptp.seq_aligner import get_refinement_mapper, get_replacement_mapper
+from fatezero_tpu_torch.ptp.spatial_blend import SpatialBlender
 
 
 @dataclasses.dataclass
@@ -28,6 +29,8 @@ class EditController:
     equalizer: Optional[np.ndarray]  # [1, 77]
     alpha_time_words: np.ndarray  # [steps+1, 1, 1, 1, 77]
     self_replace_window: Tuple[int, int]
+    latent_blend: Optional[SpatialBlender] = None
+    attention_blend: Optional[SpatialBlender] = None
     use_inversion_attention: bool = True
     save_self_attention: bool = True
 
@@ -37,7 +40,11 @@ class EditController:
 
     def edit_window(self, n_used: int) -> int:
         """Number of leading edit steps that consume inversion-pass attention;
-        steps from here on are identity edits (zero alphas, no self swap)."""
+        steps from here on are identity edits (zero alphas, no self swap).
+        The blends read the inversion maps at every step, so with a blend the
+        window is all n_used steps."""
+        if self.latent_blend is not None or self.attention_blend is not None:
+            return n_used
         w = min(self.self_replace_window[1], n_used)
         alphas = np.asarray(self.alpha_time_words[:n_used, 0]).reshape(n_used, -1)
         nz = np.nonzero(alphas.any(axis=1))[0]
@@ -55,12 +62,16 @@ def make_controller(
     self_replace_steps: float = 0.0,
     blend_words=None,
     eq_params: Optional[Dict] = None,
+    blend_th=(0.3, 0.3),
+    blend_latents: bool = False,
+    blend_self_attention: bool = False,
     use_inversion_attention: bool = True,
     save_self_attention: bool = True,
+    save_path: Optional[str] = None,
 ) -> EditController:
-    """prompts = [source, target]."""
-    if blend_words is not None and blend_words != "None":
-        raise NotImplementedError("spatial blends (blend_words) are not ported yet")
+    """prompts = [source, target]. `blend_words` builds a blender only under
+    `blend_latents` (latent blend, steps 20-80 %, source-target union) or
+    `blend_self_attention` (mask on the self swap, every step, source only)."""
     source, target = prompts[0], prompts[1]
     equal_length = len(source.split(" ")) == len(target.split(" "))
     use_replace = bool(is_replace_controller) and equal_length
@@ -84,6 +95,21 @@ def make_controller(
         int(num_steps * self_replace_steps[0]),
         int(num_steps * self_replace_steps[1]),
     )
+
+    latent_blend = attention_blend = None
+    if blend_words is not None and blend_words != "None":
+        if blend_latents:
+            latent_blend = SpatialBlender.create(
+                prompts, blend_words, tokenizer, num_steps, start_blend=0.2, end_blend=0.8,
+                th=blend_th, prompt_choose="both",
+                save_path=None if save_path is None else f"{save_path}/latent_blend_mask",
+            )
+        if blend_self_attention:
+            attention_blend = SpatialBlender.create(
+                prompts, blend_words, tokenizer, num_steps, start_blend=0.0, end_blend=2.0,
+                th=blend_th, prompt_choose="source",
+                save_path=None if save_path is None else f"{save_path}/attention_blend_mask",
+            )
     return EditController(
         num_steps=num_steps,
         cross_edit_kind="replace" if use_replace else "refine",
@@ -93,6 +119,8 @@ def make_controller(
         equalizer=equalizer,
         alpha_time_words=alpha_time_words,
         self_replace_window=window,
+        latent_blend=latent_blend,
+        attention_blend=attention_blend,
         use_inversion_attention=use_inversion_attention,
         save_self_attention=save_self_attention,
     )

@@ -89,7 +89,7 @@ def test_imports_without_jax():
         "import chip_smoke\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'fatezero_tpu.')) for k in sys.modules if sys.modules[k] is not None)\n"
         "assert {'fatezero_tpu_torch.ops.flash_variants', 'fatezero_tpu_torch.scripts.bench_flash_variants',\n"
-        "        'fatezero_tpu_torch.scripts.bench_kernel_boundary'} <= set(sys.modules)\n"
+        "        'fatezero_tpu_torch.scripts.bench_kernel_boundary', 'fatezero_tpu_torch.ptp.spatial_blend'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -143,22 +143,52 @@ def test_edited_latent_matches(slices):
     ids=["replay", "viz", "strength", "hybrid"],
 )
 def test_modes_not_ported_raise(slices, kwargs):
+    """The modes beside the full stored edit run here and give a finite latent
+    of the right shape (tests/test_torch_edit_modes.py holds them to JAX and
+    to each other): replay (no payload; with use_inversion_attention and no
+    attention blend it runs inline), viz, strength 0.5, and a hybrid whose
+    payload rows [1, 4) serve the first two steps."""
     pipe, tok = slices["pipe"], slices["tok"]
     traj, stored = slices["torch"][0], slices["torch"][1]
     emb_src, emb_tgt = (torch.from_numpy(e) for e in slices["emb"])
     kw = dict(stored=stored)
     kw.update(kwargs)
-    with pytest.raises(NotImplementedError):
-        pipe.edit_fast(traj, emb_src, emb_tgt, _controller(make_controller, tok), STEPS, **kw)
+    out, aux = pipe.edit_fast(traj, emb_src, emb_tgt, _controller(make_controller, tok), STEPS, **kw)
+    assert tuple(out.shape) == (1, F, HW, HW, 4) and bool(torch.isfinite(out).all())
+    if kwargs.get("viz"):
+        assert tuple(aux["cross_avg"].shape) == (1, F, (HW // 4) ** 2, 77)
+        np.testing.assert_allclose(aux["cross_avg"].sum(-1).numpy(), 1.0, atol=1e-5)
+    else:
+        assert aux == {}
 
 
 def test_blends_partial_capture_and_streaming_store_raise(slices):
+    """Blends and a partial capture, which once raised, build and run: a
+    blend controller has both blenders, and a capture of rows [1, 2) holds
+    one row of every payload leaf at that inversion step."""
     pipe, tok = slices["pipe"], slices["tok"]
+    ctl = make_controller(tok, [SOURCE, TARGET], STEPS, blend_words=[["jeep"], ["jeep"]],
+                          blend_latents=True, blend_self_attention=True)
+    assert ctl.latent_blend is not None and ctl.attention_blend is not None
+    assert ctl.latent_blend.alpha_layers.sum() > 0
+    emb_src = torch.from_numpy(slices["emb"][0])
+    full = slices["torch"][1]
+    lat = torch.from_numpy(slices["jax"][0][0])
+    traj, part = pipe.invert_fast(lat, emb_src, STEPS, capture=True, capture_rows=(1, 1))
+    np.testing.assert_array_equal(traj.numpy(), slices["torch"][0].numpy())
+    for key, maps in full["probs"].items():
+        for a, b in zip(maps, part["probs"][key]):
+            assert b.shape[0] == 1
+            np.testing.assert_array_equal(b[0].numpy(), a[1].numpy())
+    for key, pairs in full["qk"].items():
+        for (qa, ka), (qb, kb) in zip(pairs, part["qk"][key]):
+            np.testing.assert_array_equal(qb[0].numpy(), qa[1].numpy())
+            np.testing.assert_array_equal(kb[0].numpy(), ka[1].numpy())
+
+
+def test_streaming_store_raises(slices):
+    """The streaming store (invert, sample) is the one part of the pipeline not ported."""
+    pipe = slices["pipe"]
     for method in (pipe.invert, pipe.sample):
         with pytest.raises(NotImplementedError):
             method(torch.zeros(1, F, HW, HW, 4), torch.from_numpy(slices["emb"][0]), STEPS)
-    with pytest.raises(NotImplementedError):
-        make_controller(tok, [SOURCE, TARGET], STEPS, blend_words=[["jeep"], ["jeep"]])
-    lat = torch.zeros(1, F, HW, HW, 4)
-    with pytest.raises(NotImplementedError):
-        pipe.invert_fast(lat, torch.from_numpy(slices["emb"][0]), STEPS, capture=True, capture_rows=(1, 1))
