@@ -111,6 +111,14 @@ POSCHE_P2P = dict(
     blend_latents=True, blend_self_attention=True, use_inversion_attention=True,
 )
 HYBRID_BUDGET = 0.4  # the hybrid's payload budget, a share of the full payload
+# the tiny modes, card against CPU in fp32 (sharp_cross_state's weights):
+# the normalised blend maps of an edit that both devices run from one
+# trajectory and payload (measured <= 5.0e-5 on the H100), and each captured
+# payload leaf relative to max(1, max|leaf|): the payload carries the
+# inversion's drift between the devices, which sharp softmaxes amplify
+# (measured <= 1.26e-2 at trajectories that part by <= 2.1e-3)
+MODES_MAP_TOL = 1e-4
+MODES_PAYLOAD_TOL = 5e-2
 
 KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "layer_norm.cu", "flash_fwd_bf16.cu", "flash_fwd_merged.cu")
 # one H100 SXM (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
@@ -870,7 +878,8 @@ def k1_per_forward(unet, latent, kind, materialized=None):
 
 class BlendRecorder:
     """Stands in for the pipeline's blend_mask and keeps every normalised map
-    m / max(m) it thresholds, with the threshold."""
+    m / max(m) it thresholds, with the threshold, on the maps' device (no
+    copy to the host inside the edit)."""
 
     def __init__(self):
         from fatezero_tpu_torch.ptp import spatial_blend
@@ -880,12 +889,13 @@ class BlendRecorder:
 
     def __call__(self, maps, alpha, target_hw, th, use_pool=True):
         norm = self.blend_map(maps, alpha, target_hw, use_pool)
-        self.calls.append((norm.float().cpu(), th))
+        self.calls.append((norm, th))
         return (norm > th).float()
 
 
 def recorded_edit(pipe, *args, **kwargs):
-    """pipe.edit_fast with every blend threshold recorded: (latent, aux, calls)."""
+    """pipe.edit_fast with every blend threshold recorded: (latent, aux, calls),
+    the calls' maps copied to the host after the edit."""
     from fatezero_tpu_torch.pipelines import fatezero_pipeline as FPM
 
     rec, blend_mask = BlendRecorder(), FPM.blend_mask
@@ -894,7 +904,29 @@ def recorded_edit(pipe, *args, **kwargs):
         out, aux = pipe.edit_fast(*args, **kwargs)
     finally:
         FPM.blend_mask = blend_mask
-    return out, aux, rec.calls
+    return out, aux, [(norm.float().cpu(), th) for norm, th in rec.calls]
+
+
+def sharp_cross_state(unet, seed):
+    """Weights for `unet` drawn with numpy from `seed` as
+    tests/test_torch_edit_modes.py draws them: N(0, 1 / fan-in) kernels with
+    the cross-attention q and k 3x larger, norm scales 1 + N(0, 0.01),
+    biases N(0, 0.01). The cross maps then vary over the image, so the blend
+    masks are neither all 1 nor all 0 (random:tiny's N(0, 0.02) weights give
+    near-uniform maps and masks that are all 1)."""
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, p in sorted(unet.state_dict().items()):
+        shape = tuple(p.shape)
+        if name.endswith("bias"):
+            w = 0.1 * rng.standard_normal(shape)
+        elif len(shape) == 1:
+            w = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            gain = 3.0 if ".attn2.to_q." in name or ".attn2.to_k." in name else 1.0
+            w = gain * rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        state[name] = w.astype(np.float32)
+    return state
 
 
 def check_blend_masks(map_tol):
@@ -947,87 +979,169 @@ def check_blend_masks(map_tol):
 
 def tiny_modes_reference():
     """Every edit mode at a small size, card against CPU, in fp32: the tiny
-    UNet with the blend config's model_config, 2 frames of 16x16 seeded
-    latents and seeded text embeddings, the blend config's controller. With
-    random:tiny's weights the cross maps are near uniform and every blend
-    mask is 1, so check_blend_masks first holds the masks on maps that vary.
+    UNet with the blend config's model_config and sharp_cross_state's weights
+    (so that the masks vary and the masked self swap and the latent blend's
+    inverted branch run), 2 frames of 16x16 seeded latents and seeded text
+    embeddings, the blend config's controller. The two hybrids without blends
+    have an edit window of 2 of their 4 steps, so their identity-gated tail
+    (payload row 0 under zero gates) runs; with blends the window is every
+    step. check_blend_masks first holds the blenders alone on seeded maps.
 
-    Held: the edited latents within 1e-3 x max|x| (the tiny edit's tolerance);
-    every normalised blend map within map_tol of the CPU's, no CPU pixel
-    within map_tol of its threshold (so no mask can flip between the two),
-    and every aux mask equal."""
+    Sharp cross attention amplifies the two devices' rounding from pass to
+    pass, so the inversions and the edits are held apart: each inversion
+    (trajectory and payload) card against CPU, then each edit on the card
+    from the CPU's trajectory and payload against the CPU's edit. Held: the
+    trajectories and edited latents within 1e-3 x max|x| (the tiny edit's
+    tolerance) and the payload within MODES_PAYLOAD_TOL; every normalised blend
+    map within MODES_MAP_TOL of the CPU's; the masks equal wherever the CPU's
+    map is more than MODES_MAP_TOL from its threshold, and that band empty,
+    so no mask can flip between the two; every aux mask equal."""
     import torch
 
-    from fatezero_tpu_torch.models.loader import load_models
-    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+    from fatezero_tpu_torch.models.loader import load_models, load_state
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline, _payload_leaves
     from fatezero_tpu_torch.ptp.controller import make_controller
 
     # the same maps on both devices differ only in the order of their sums
     # (~1e-7 at values up to 1); the edit's maps also carry the UNet's
     check_blend_masks(1e-6)
-    map_tol = 1e-4
+    map_tol = MODES_MAP_TOL
     rng = np.random.default_rng(11)
     lat = rng.standard_normal((1, 2, 16, 16, 4)).astype(np.float32)
     emb = [rng.standard_normal((2, 77, 32)).astype(np.float32) for _ in range(2)]
+    no_blends = {"blend_words": None}
     modes = [  # name, steps, controller overrides, payload, edit_fast keywords
         ("stored, both blends", 3, {}, "full", {}),
         ("replay", 3, {}, None, {}),
         ("inline", 3, {"blend_self_attention": False}, None, {}),
         ("hybrid, inversion attention", 4, {}, "part", {}),
         ("hybrid, no inversion attention", 4, {"use_inversion_attention": False}, "part", {}),
+        ("hybrid, no blends, inversion attention", 4, no_blends, "part", {}),
+        ("hybrid, no blends, no inversion attention", 4, {**no_blends, "use_inversion_attention": False}, "part", {}),
         ("strength 0.5", 3, {}, "full", {"strength": 0.5}),
         ("viz", 3, {}, "full", {"viz": True}),
     ]
-    runs = {}
-    for dev in (torch.device("cuda"), torch.device("cpu")):
+
+    def moved(payload, dev):
+        if payload is None:
+            return None
+        return {"probs": {key: [t.to(dev) for t in lst] for key, lst in payload["probs"].items()},
+                "qk": {key: [tuple(t.to(dev) for t in pair) for pair in lst] for key, lst in payload["qk"].items()}}
+
+    runs, inversions, state, faults = {}, {}, None, []
+    for dev in (torch.device("cpu"), torch.device("cuda")):
         m = load_models("random:tiny", POSCHE_MODEL, torch.float32, device=dev)
+        state = state or sharp_cross_state(m.unet, seed=7)
+        load_state(m.unet, state, dev)
         pipe = FateZeroPipeline(m.unet, None, None, m.tokenizer, m.schedule, store_dtype=torch.float32, device=dev)
         x, es, et = (torch.from_numpy(a).to(dev) for a in (lat, *emb))
         out = runs[dev.type] = {}
         for name, steps, over, payload, kw in modes:
             ctl = make_controller(m.tokenizer, [POSCHE_SOURCE, POSCHE_TARGET], steps, **{**POSCHE_P2P, **over})
-            extra = {}
+            extra, stored, rows = {}, None, None
+            if payload == "part":  # a budget of 2.5 steps: k = 2 rows
+                rows = pipe.plan_capture(x, steps, ctl.edit_window(steps), 2.5 * pipe.capture_payload_bytes(x, 1),
+                                         use_inversion_attention=ctl.use_inversion_attention)
+                assert rows is not None and rows[1] == 2, rows
+                extra["stored_row0"] = rows[0]
             if payload is None:
                 traj = pipe.invert_fast(x, es, steps)
             else:
-                rows = None
-                if payload == "part":  # a budget of 2.5 steps: k = 2 rows
-                    rows = pipe.plan_capture(x, steps, ctl.edit_window(steps), 2.5 * pipe.capture_payload_bytes(x, 1),
-                                             use_inversion_attention=ctl.use_inversion_attention)
-                    assert rows is not None and rows[1] == 2, rows
-                    extra["stored_row0"] = rows[0]
-                traj, extra["stored"] = pipe.invert_fast(x, es, steps, capture=True, capture_rows=rows)
-            out[name] = recorded_edit(pipe, traj, es, et, ctl, steps, **kw, **extra)
+                traj, stored = pipe.invert_fast(x, es, steps, capture=True, capture_rows=rows)
+            if dev.type == "cpu":
+                inversions[name] = (traj, stored)
+            else:  # the inversion, card against CPU; the edit then starts from the CPU's
+                ref_traj, ref_stored = inversions[name]
+                err = (traj.cpu() - ref_traj).abs().max().item()
+                tol = 1e-3 * max(1.0, ref_traj.abs().max().item())
+                p_err = max((((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1.0)).item() for a, b in
+                             zip(_payload_leaves(stored), _payload_leaves(ref_stored))), default=0.0) \
+                    if stored is not None else 0.0
+                log(f"[modes reference] tiny {name}: inversion card vs CPU, trajectory max_abs_err {err:.3e} "
+                    f"(tol {tol:.3e}), payload max_abs_err / max(1, max) {p_err:.3e} (tol {MODES_PAYLOAD_TOL})")
+                if not (err <= tol and p_err <= MODES_PAYLOAD_TOL):
+                    faults.append(f"{name}: inversion card vs CPU {err:.3e} (tol {tol:.3e}), payload {p_err:.3e}")
+                traj, stored = ref_traj.to(dev), moved(ref_stored, dev)
+            if stored is not None:
+                extra["stored"] = stored
+            out[name] = (*recorded_edit(pipe, traj, es, et, ctl, steps, **kw, **extra), ctl.edit_window(steps))
         del m, pipe
     worst = {}
     for name, *_ in modes:
-        (a, aux_a, calls_a), (b, aux_b, calls_b) = runs["cuda"][name], runs["cpu"][name]
+        (a, aux_a, calls_a, window), (b, aux_b, calls_b, _) = runs["cuda"][name], runs["cpu"][name]
         a = a.float().cpu()
         err = (a - b).abs().max().item()
         tol = 1e-3 * max(1.0, b.abs().max().item())
         if not (torch.isfinite(a).all() and err <= tol):
-            raise AssertionError(f"tiny {name}: card vs CPU latent error {err:.3e} > {tol:.3e}")
+            faults.append(f"{name}: card vs CPU latent error {err:.3e} > {tol:.3e}")
         if len(calls_a) != len(calls_b):
-            raise AssertionError(f"tiny {name}: {len(calls_a)} blend masks on the card, {len(calls_b)} on the CPU")
+            faults.append(f"{name}: {len(calls_a)} blend masks on the card, {len(calls_b)} on the CPU")
         map_err = max((abs(na - nb).max().item() for (na, _), (nb, _) in zip(calls_a, calls_b)), default=0.0)
         margin = min(((nb - th).abs().min().item() for nb, th in calls_b), default=float("inf"))
-        if not (map_err <= map_tol and margin > map_tol):
-            raise AssertionError(f"tiny {name}: blend maps card vs CPU {map_err:.3e} (tol {map_tol}), "
-                                 f"closest CPU pixel {margin:.3e} from its threshold (must exceed {map_tol})")
+        in_band = sum(int(((nb - th).abs() <= map_tol).sum()) for nb, th in calls_b)
+        flipped = sum(int((((na > th) != (nb > th)) & ((nb - th).abs() > map_tol)).sum())
+                      for (na, _), (nb, th) in zip(calls_a, calls_b))
+        if not (map_err <= map_tol and in_band == 0 and flipped == 0):
+            faults.append(f"{name}: blend maps card vs CPU {map_err:.3e} (tol {map_tol}); {in_band} CPU pixels "
+                          f"within the tolerance of their threshold (must be 0); {flipped} mask pixels differ "
+                          f"outside that band")
         for key in aux_b:
-            if not torch.equal(aux_a[key].float().cpu(), aux_b[key]) and key != "cross_avg":
-                raise AssertionError(f"tiny {name}: aux {key} differs card vs CPU")
+            if key != "cross_avg" and not torch.equal(aux_a[key].float().cpu(), aux_b[key]):
+                faults.append(f"{name}: aux {key} differs card vs CPU")
         if "cross_avg" in aux_b:
             c_err = (aux_a["cross_avg"].float().cpu() - aux_b["cross_avg"]).abs().max().item()
             rows = aux_a["cross_avg"].sum(-1)
             if not (c_err <= map_tol and (rows - 1).abs().max().item() <= 1e-5):
-                raise AssertionError(f"tiny {name}: cross_avg off by {c_err:.3e} or rows not summing to 1")
+                faults.append(f"{name}: cross_avg off by {c_err:.3e} or rows not summing to 1")
+            log(f"[modes reference] tiny {name}: cross_avg max_abs_err {c_err:.3e} (tol {map_tol})")
         means = {k: round(float(v.float().mean()), 4) for k, v in aux_b.items() if k != "cross_avg"}
-        log(f"[modes reference] tiny {name}: latent max_abs_err {err:.3e} (tol {tol:.3e}); {len(calls_b)} blend "
-            f"maps, max_abs_err {map_err:.3e} (tol {map_tol}), closest pixel {margin:.3e} from its threshold; "
-            f"mask means {json.dumps(means)}")
+        log(f"[modes reference] tiny {name}: latent max_abs_err {err:.3e} (tol {tol:.3e}); edit window {window}; "
+            f"{len(calls_b)} blend maps, max_abs_err {map_err:.3e} (tol {map_tol}), closest CPU pixel "
+            f"{margin:.3e} from its threshold, {in_band} within the tolerance; mask means {json.dumps(means)}")
         worst[name] = err
+    if faults:
+        raise AssertionError("tiny edit modes, card vs CPU: " + "; ".join(faults))
     return worst
+
+
+def fp32_trajectory_witness(device, latents, emb_src, emb_tgt):
+    """Replay on its own trajectory against stored, the blend config at full
+    width in fp32 (store dtype fp32) on the bf16 modes' latents and prompts.
+    In bf16 the plain inversion (every cross site through K1, P kept in fp32)
+    and the capturing one (the controlled sites materialise bf16
+    probabilities) part through the trajectory. In fp32 both keep fp32
+    probabilities, so a gap left there would be a fault of the plain inversion
+    or the capture, not rounding: the two edits must agree within one bf16
+    unit of the largest value, the tolerance the bf16 modes meet on one
+    trajectory, and their masks must be equal. Untimed; no main path."""
+    import torch
+
+    from fatezero_tpu_torch.models.loader import load_models
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+    from fatezero_tpu_torch.ptp.controller import make_controller
+
+    m = load_models("random:sd", POSCHE_MODEL, dtype=torch.float32, seed=0, device=device)
+    pipe = FateZeroPipeline(m.unet, None, None, m.tokenizer, m.schedule, store_dtype=torch.float32, device=device)
+    ctl = make_controller(m.tokenizer, [POSCHE_SOURCE, POSCHE_TARGET], STEPS, **POSCHE_P2P)
+    t0 = time.perf_counter()
+    traj_plain = pipe.invert_fast(latents, emb_src, STEPS)
+    replay, replay_aux = pipe.edit_fast(traj_plain, emb_src, emb_tgt, ctl, STEPS)
+    traj, stored = pipe.invert_fast(latents, emb_src, STEPS, capture=True)
+    ref, ref_aux = pipe.edit_fast(traj, emb_src, emb_tgt, ctl, STEPS, stored=stored)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    drift = ((traj_plain[-1] - traj[-1]).norm() / traj[-1].norm()).item()
+    err = (replay.float() - ref.float()).abs().max().item()
+    tol = 2**-7 * ref.abs().max().item()
+    same_masks = all(torch.equal(replay_aux[key], ref_aux[key]) for key in ref_aux)
+    log(f"[modes] fp32 witness: plain vs capturing inversion rel_l2 at the noisiest latent {drift:.3e}; replay on "
+        f"its own trajectory vs stored max_abs_err {err:.3e} of max {ref.abs().max().item():.3e} (tol {tol:.3e}), "
+        f"masks equal {same_masks}, finite {bool(torch.isfinite(replay).all() and torch.isfinite(ref).all())}; "
+        f"{seconds:.1f} s")
+    if not (err <= tol and same_masks):
+        raise AssertionError(f"fp32: replay on its own trajectory disagrees with stored ({err:.3e} > {tol:.3e} "
+                             f"or masks differ)")
+    del m, pipe, traj_plain, replay, traj, stored, ref
 
 
 def full_width_modes(device, kernels, reset_counts, check_plain):
@@ -1099,13 +1213,12 @@ def full_width_modes(device, kernels, reset_counts, check_plain):
         inv_peak = torch.cuda.max_memory_allocated() - before
         held = torch.cuda.memory_allocated() - before
         payload = 0 if stored is None else sum(t.numel() * t.element_size() for t in FPM._payload_leaves(stored))
-        (edited, aux, calls), t_edit = phase(f"modes {name} edit", lambda: recorded_edit(
-            pipe, traj, emb_src, emb_tgt, mode_ctl, STEPS, **extra))
+        (edited, aux), t_edit = phase(f"modes {name} edit", lambda: pipe.edit_fast(
+            traj, emb_src, emb_tgt, mode_ctl, STEPS, **extra))
         peak = torch.cuda.max_memory_allocated() - before
         k1 = kernels[0].launches
         launches = {fn.__name__: fn.launches for fn in kernels}
         finite = bool(torch.isfinite(edited).all())
-        margin = min(((n - th).abs().min().item() for n, th in calls), default=float("inf"))
         means = {key: round(float(v.float().mean()), 4) for key, v in aux.items()}
         log(f"[modes] {name}: invert {t_inv:.3f} s, edit {t_edit:.3f} s, peak {peak / 2**30:.2f} GiB above the "
             f"{before / 2**30:.2f} GiB held at the mode's start (weights, and the stored mode's trajectory and "
@@ -1113,7 +1226,7 @@ def full_width_modes(device, kernels, reset_counts, check_plain):
             f"payload predicted {predicted} bytes, actual {payload}, held after invert {held} bytes "
             f"(trajectory included), invert peak above start {inv_peak} bytes; K1 launches {k1} "
             f"(expected {k1_expect}); launches {json.dumps(launches)}; output {tuple(edited.shape)} finite {finite}; "
-            f"mask means {json.dumps(means)}; closest blend pixel {margin:.3e} from its threshold")
+            f"mask means {json.dumps(means)}")
         check_plain(f"modes {name}")
         if not finite or tuple(edited.shape) != (1, FRAMES, lat, lat, 4):
             raise AssertionError(f"modes {name}: output {tuple(edited.shape)} finite={finite}")
@@ -1145,16 +1258,21 @@ def full_width_modes(device, kernels, reset_counts, check_plain):
             "qk": {key: [tuple(t[plan[0]:plan[0] + k] for t in pair) for pair in lst]
                    for key, lst in stored["qk"].items()}}
     for name, extra in (("replay", {}), ("hybrid", {"stored": part, "stored_row0": plan[0]})):
-        got, aux, _ = recorded_edit(pipe, traj, emb_src, emb_tgt, ctl, STEPS, **extra)
+        got, aux, calls = recorded_edit(pipe, traj, emb_src, emb_tgt, ctl, STEPS, **extra)
         err = (got.float() - ref).abs().max().item()
         tol = 2**-7 * ref.abs().max().item()
         same_masks = all(torch.equal(aux[key], ref_aux[key]) for key in ref_aux)
+        margin = min(((n - th).abs().min().item() for n, th in calls), default=float("inf"))
         log(f"[modes] {name} vs stored, on the stored edit's trajectory: max_abs_err {err:.3e} (tol {tol:.3e}), "
-            f"masks equal {same_masks}")
+            f"masks equal {same_masks}; closest blend pixel {margin:.3e} from its threshold")
         if not (err <= tol and same_masks):
             raise AssertionError(f"modes {name} disagrees with the stored edit")
     check_plain("modes agreement")
     del m, pipe, outs, traj, stored, part
+    torch.cuda.empty_cache()
+    fp32_trajectory_witness(device, latents.float(), emb_src.float(), emb_tgt.float())
+    check_plain("modes fp32 witness")
+    del latents, emb_src, emb_tgt
     torch.cuda.empty_cache()
     total = time.perf_counter() - t_start
     log(f"[modes] summary {json.dumps(results)}")

@@ -421,7 +421,6 @@ class FateZeroPipeline:
                     alpha_words=alpha_words[i],
                     store_dtype=self.store_dtype,
                     injected_qk=injected_qk,
-                    value_space_cross=True,
                     materialize_cross_size=s16 if (use_latent_blend or viz) else None,
                 )
                 eps = self.unet(torch.cat([latent, latent]), t, text_embeddings, attn_ctx=ctx)

@@ -302,8 +302,7 @@ class EditContext(StoreContext):
 
     ``injected[key][pos]`` are the inversion's cross maps ([1, f, h, s, kv]);
     ``injected_qk[key][pos]`` its self (q, k) pairs. Position counters follow
-    the visit order of the UNet. With `value_space_cross` (the default here;
-    the pipeline always asks for it) cross sites run in value space, except
+    the visit order of the UNet. Cross sites run in value space, except
     those with `materialize_cross_size` queries: the latent blend and the
     attention visualisation read their live maps, so they materialise through
     ``process``, which stores the cond row in ``captured``. Self sites run in
@@ -317,7 +316,6 @@ class EditContext(StoreContext):
         alpha_words: torch.Tensor,
         store_dtype=torch.bfloat16,
         injected_qk: Optional[Dict[str, List]] = None,
-        value_space_cross: bool = True,
         materialize_cross_size: Optional[int] = None,
     ):
         super().__init__(save_self_attention=params.save_self_attention, store_dtype=store_dtype)
@@ -325,7 +323,6 @@ class EditContext(StoreContext):
         self.injected_qk = injected_qk
         self.params = params
         self.alpha_words = alpha_words
-        self.value_space_cross = value_space_cross
         self.materialize_cross_size = materialize_cross_size
         self._pos = {k: 0 for k in STORE_KEYS}
         self._pos_qk = {k: 0 for k in STORE_KEYS}
@@ -368,8 +365,6 @@ class EditContext(StoreContext):
         live cond values. Cross sites go through _cross_value_space.
         """
         if is_cross:
-            if not self.value_space_cross or self.injected is None:
-                return None
             if self.materialize_cross_size is not None and qh.shape[-2] == self.materialize_cross_size:
                 return None  # the blend and viz read these live maps
             return self._cross_value_space(qh, kh, vh, scale, place, video_shape)

@@ -71,7 +71,15 @@ def make_controller(
 ) -> EditController:
     """prompts = [source, target]. `blend_words` builds a blender only under
     `blend_latents` (latent blend, steps 20-80 %, source-target union) or
-    `blend_self_attention` (mask on the self swap, every step, source only)."""
+    `blend_self_attention` (mask on the self swap, every step, source only).
+
+    `save_path` (mask PNGs per step) belongs to the streaming store's
+    `sample`, the one path that writes them, and is not ported: it raises."""
+    if save_path is not None:
+        raise NotImplementedError(
+            "save_path: blend masks are written per step by the streaming store's sample, which is not "
+            "ported; edit_fast returns them in aux['attn_mask'] and aux['latent_mask']"
+        )
     source, target = prompts[0], prompts[1]
     equal_length = len(source.split(" ")) == len(target.split(" "))
     use_replace = bool(is_replace_controller) and equal_length
@@ -102,13 +110,11 @@ def make_controller(
             latent_blend = SpatialBlender.create(
                 prompts, blend_words, tokenizer, num_steps, start_blend=0.2, end_blend=0.8,
                 th=blend_th, prompt_choose="both",
-                save_path=None if save_path is None else f"{save_path}/latent_blend_mask",
             )
         if blend_self_attention:
             attention_blend = SpatialBlender.create(
                 prompts, blend_words, tokenizer, num_steps, start_blend=0.0, end_blend=2.0,
                 th=blend_th, prompt_choose="source",
-                save_path=None if save_path is None else f"{save_path}/attention_blend_mask",
             )
     return EditController(
         num_steps=num_steps,

@@ -16,7 +16,7 @@ the five maps at that resolution (fatezero_pipeline._blend_maps_16).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,7 +96,7 @@ def blend_mask(
 
 @dataclasses.dataclass
 class SpatialBlender:
-    """Config and host-side state (step counter, saved masks) of one blender.
+    """Config of one blender.
 
     prompt_choose='source' gives the self-attention mask from the source row
     only; 'both' the union of the source and target masks, for the latent blend.
@@ -107,13 +107,9 @@ class SpatialBlender:
     end_blend: int
     th: Tuple[float, float] = (0.3, 0.3)
     prompt_choose: str = "source"
-    save_path: Optional[str] = None
     # indicator of words whose own (unpooled, th[1]-thresholded) mask is
     # carved out of the main mask
     substruct_layers: Optional[np.ndarray] = None
-
-    counter: int = 0
-    mask_list: List[np.ndarray] = dataclasses.field(default_factory=list)
 
     @classmethod
     def create(
@@ -126,7 +122,6 @@ class SpatialBlender:
         end_blend: float = 0.8,
         th=(0.3, 0.3),
         prompt_choose: str = "source",
-        save_path: Optional[str] = None,
         substruct_words=None,
     ) -> "SpatialBlender":
         assert prompt_choose in ("source", "both")
@@ -136,7 +131,6 @@ class SpatialBlender:
             end_blend=int(end_blend * num_steps),
             th=tuple(th) if not isinstance(th, (int, float)) else (th, th),
             prompt_choose=prompt_choose,
-            save_path=save_path,
             substruct_layers=None
             if substruct_words is None
             else word_alpha_layers(prompts, substruct_words, tokenizer),
@@ -160,25 +154,8 @@ class SpatialBlender:
             mask = mask * (1.0 - sub)
         return mask
 
-    def record(self, mask, save_tag: str = "") -> None:
-        """Keep a mask on the host and, with `save_path`, write its last row's
-        frames as PNGs."""
-        m = mask.detach().float().cpu().numpy() if torch.is_tensor(mask) else np.asarray(mask)
-        self.mask_list.append(m)
-        if self.save_path is not None:
-            import os
-
-            from PIL import Image
-
-            os.makedirs(self.save_path, exist_ok=True)
-            frames = m[-1] if m.ndim == 4 else m  # [f, h, w]
-            for fi, frame in enumerate(frames):
-                Image.fromarray((frame * 255).astype(np.uint8)).save(
-                    os.path.join(self.save_path, f"mask_{save_tag}_{self.counter:03d}_{fi:02d}.png")
-                )
-
     def latent_blend_active(self, step: int) -> bool:
-        """The blend window (the counter is 1-based: it is incremented before the check)."""
+        """The blend window: edit step `step` is the reference's 1-based counter step + 1."""
         return self.start_blend < (step + 1) < self.end_blend
 
 

@@ -73,7 +73,7 @@ def _controller(make, tok, steps=STEPS, blend_latents=True, blend_self_attention
 
 
 def _random_flax(model, *args, seed=0):
-    """Every leaf drawn from numpy; the cross-attention q and k kernels 1.5x
+    """Every leaf drawn from numpy; the cross-attention q and k kernels 3x
     larger, so that the cross maps vary over the image and the blend masks
     are neither all 1 nor all 0 (at 1x every map is within 20 % of its max,
     and every mask is 1). Sharper attention amplifies the two packages'

@@ -125,13 +125,15 @@ def test_mask_for_matches_jax(choose, substruct):
 
 
 def test_latent_blend_active_and_record_match_jax(tmp_path):
+    """The blend window as JAX's; recording masks (`save_path`) belongs to the
+    streaming store's sample, which is not ported, so asking for it raises
+    instead of being ignored."""
     tb, jb = _blenders("both", False)
     assert [tb.latent_blend_active(i) for i in range(10)] == [jb.latent_blend_active(i) for i in range(10)]
-    tb.save_path = str(tmp_path)
-    mask = torch.from_numpy((np.random.RandomState(5).rand(P, F, 8, 8) > 0.5).astype(np.float32))
-    tb.record(mask, "step000")
-    np.testing.assert_array_equal(tb.mask_list[0], mask.numpy())
-    assert len(list(tmp_path.glob("mask_step000_000_*.png"))) == F
+    with pytest.raises(NotImplementedError, match="save_path"):
+        make_controller(StubTokenizer(), [SOURCE, TARGET], num_steps=10, blend_words=WORDS, blend_latents=True,
+                        save_path=str(tmp_path))
+    assert not any(tmp_path.iterdir())
 
 
 def test_apply_latent_blend_matches_jax():
