@@ -40,6 +40,11 @@ Phases, each synchronised and timed:
    CPU: stored with both blends, replay, inline, hybrid (2 of 4 rows, with and
    without inversion attention), strength 0.5 and viz; latents, every
    normalised blend map (with the threshold band shown empty) and every mask;
+   CLI reference: config/demo_tiny.yaml through the edit CLI on the card and
+   on the CPU (fp32) from a diffusers-layout checkpoint of random:tiny's 2-D
+   weights written to build/: the same artifact names, decoded videos within
+   CLI_VIDEO_TOL, blend maps within MODES_MAP_TOL with the band empty, mask
+   PNGs equal;
 6. the main paths at full SD-1.4 width (random:sd weights from a seed), each
    driven with every launch count set to 0 just before it and read just
    after:
@@ -58,6 +63,18 @@ Phases, each synchronised and timed:
       and held, and K1's launches against the count from the sites' shapes;
       on the stored edit's trajectory, replay and hybrid must agree with
       stored to one bf16 unit;
+   b3. the edit CLI, `fatezero_tpu_torch.cli.edit.run`, on two shipped
+      configs at full width as shipped (50 steps, bf16) but for their frames
+      (8 synthetic 512x512 PNGs) and logdir; their ./ckpt/ paths are absent,
+      so the loader builds random:sd: config/teaser/jeep_watercolor.yaml
+      (two prompts; its payload fits the 8 GB budget: a full capture) and
+      config/teaser/jeep_posche_local_latent_blend.yaml (both blends; over
+      the budget: a hybrid). Each `[cli]` line gives the CLI's own
+      phase_timings.json, the wall time, the capture plan, the payload
+      predicted and held, the peak memory, K1's launches against the count
+      from the sites' shapes (viz on) and the artifacts; every expected
+      artifact (gifs, frame folders, atten gifs, one mask PNG per step and
+      frame) must exist;
    c. tuning: three updates of config/tune/jeep.yaml's settings (lora 160,
       gradient checkpointing, temporal convs trained, lr 1e-5 constant, seed
       74831) on 8 frames at 512x512 in bf16;
@@ -119,6 +136,14 @@ HYBRID_BUDGET = 0.4  # the hybrid's payload budget, a share of the full payload
 # (measured <= 1.26e-2 at trajectories that part by <= 2.1e-3)
 MODES_MAP_TOL = 1e-4
 MODES_PAYLOAD_TOL = 5e-2
+
+# the edit CLI (python3 -m fatezero_tpu_torch.cli.edit) on shipped configs;
+# the tiny run's decoded videos card vs CPU in fp32 (values in [0, 1])
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI_TINY = os.path.join(REPO, "config", "demo_tiny.yaml")
+CLI_TEASER = os.path.join(REPO, "config", "teaser", "jeep_watercolor.yaml")
+CLI_BLEND = os.path.join(REPO, "config", "teaser", "jeep_posche_local_latent_blend.yaml")
+CLI_VIDEO_TOL = 1e-3
 
 KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "layer_norm.cu", "flash_fwd_bf16.cu", "flash_fwd_merged.cu")
 # one H100 SXM (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
@@ -1280,6 +1305,306 @@ def full_width_modes(device, kernels, reset_counts, check_plain):
     return results, total
 
 
+# ---------------------------------------------------------------- the edit CLI
+def write_safetensors(path, state):
+    """A .safetensors file of fp32 arrays (8-byte little-endian header length,
+    JSON header, raw bytes), without the safetensors package."""
+    import struct
+
+    header, chunks, off = {}, [], 0
+    for key, value in state.items():
+        raw = np.ascontiguousarray(value, dtype="<f4").tobytes()
+        header[key] = {"dtype": "F32", "shape": list(np.shape(value)), "data_offsets": [off, off + len(raw)]}
+        chunks.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        f.writelines(chunks)
+
+
+def write_tokenizer(path, text):
+    """A CLIP BPE vocab: the 512 byte symbols, the special tokens, and the
+    merges (with their tokens) that join each word of `text` letter by letter
+    from the left (a word can still split where another word's merge comes
+    first)."""
+    from fatezero_tpu_torch.models.tokenizer import bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    vocab = chars + [c + "</w>" for c in chars]
+    merges = []
+    for word in sorted(set(text.lower().replace(",", " ").split())):
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            merges.append(f"{parts[0]} {parts[1]}")
+            parts = [parts[0] + parts[1]] + parts[2:]
+            if parts[0] not in vocab:
+                vocab.append(parts[0])
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump({tok: i for i, tok in enumerate(vocab)}, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(dict.fromkeys(merges)) + "\n")
+    return len(vocab)
+
+
+def write_frames(path, n, hw, seed):
+    """n seeded RGB PNG frames of hw = (h, w) pixels."""
+    from PIL import Image
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(os.path.join(path, f"{i:05d}.png"))
+    return path
+
+
+def write_tiny_diffusers(path, model_config, text):
+    """random:tiny's 2-D weights as a diffusers-layout checkpoint (the UNet's
+    proj_in/proj_out as 1x1 convs, as SD-1.4 ships them), its config.json
+    files, a tokenizer for `text` and a scheduler config."""
+    from fatezero_tpu_torch.models import loader as L
+
+    m = L.load_models("random:tiny", model_config, device="cpu")
+    unet = {k: v.numpy() for k, v in m.unet.state_dict().items() if "temporal" not in k and "lora" not in k}
+    for k in unet:
+        if k.endswith((".proj_in.weight", ".proj_out.weight")):
+            unet[k] = unet[k][:, :, None, None]
+    down = ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"]
+    up = ["UpBlock2D"] + ["CrossAttnUpBlock2D"] * 3
+    tiny = L.TINY_UNET
+    configs = {
+        "unet": {**tiny, "block_out_channels": list(tiny["block_out_channels"]), "sample_size": 8,
+                 "down_block_types": down, "up_block_types": up, "layers_per_block": 2},
+        "vae": {"block_out_channels": list(L.TINY_VAE.block_out_channels), "norm_num_groups": 8,
+                "latent_channels": 4, "layers_per_block": 2},
+        "text_encoder": {"hidden_size": 32, "intermediate_size": 64, "num_hidden_layers": 2,
+                         "num_attention_heads": 2, "vocab_size": L.TINY_TEXT.vocab_size},
+    }
+    states = {"unet": unet, "vae": {k: v.numpy() for k, v in m.vae.state_dict().items()},
+              "text_encoder": {k: v.numpy() for k, v in m.text_encoder.state_dict().items()}}
+    for comp, cfg in configs.items():
+        os.makedirs(os.path.join(path, comp), exist_ok=True)
+        with open(os.path.join(path, comp, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        name = "model.safetensors" if comp == "text_encoder" else "diffusion_pytorch_model.safetensors"
+        write_safetensors(os.path.join(path, comp, name), states[comp])
+    n_vocab = write_tokenizer(os.path.join(path, "tokenizer"), text)
+    if n_vocab > L.TINY_TEXT.vocab_size:
+        raise AssertionError(f"the tiny tokenizer holds {n_vocab} tokens, the text tower {L.TINY_TEXT.vocab_size}")
+    os.makedirs(os.path.join(path, "scheduler"), exist_ok=True)
+    with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump({"num_train_timesteps": 1000, "beta_start": 0.00085, "beta_end": 0.012,
+                   "beta_schedule": "scaled_linear", "set_alpha_to_one": False}, f)
+    return path
+
+
+def artifact_names(root):
+    return sorted(os.path.relpath(os.path.join(r, f), root) for r, _, fs in os.walk(root) for f in fs)
+
+
+def recorded_blends(fn):
+    """Run fn() with every blend mask the pipeline thresholds recorded:
+    (fn's result, [(normalised map on the host, threshold)])."""
+    from fatezero_tpu_torch.pipelines import fatezero_pipeline as FPM
+
+    rec, blend_mask = BlendRecorder(), FPM.blend_mask
+    FPM.blend_mask = rec
+    try:
+        out = fn()
+    finally:
+        FPM.blend_mask = blend_mask
+    return out, [(norm.float().cpu(), th) for norm, th in rec.calls]
+
+
+def tiny_cli_reference():
+    """config/demo_tiny.yaml through cli.edit.test on the card and on the CPU,
+    fp32 (mixed_precision "no"), from a diffusers-layout checkpoint of
+    random:tiny's 2-D weights and 8 synthetic 80x96 frames (the config takes
+    4 at stride 2, at 64x64): both runs must write the same artifact names,
+    decode videos within CLI_VIDEO_TOL, and write equal mask PNGs, with every
+    normalised blend map within MODES_MAP_TOL of the CPU's and the CPU's
+    pixels more than that from their threshold (the band rule)."""
+    import shutil
+
+    import torch
+    from PIL import Image
+
+    from fatezero_tpu_torch.cli import edit as cli
+    from fatezero_tpu_torch.common.config import load_config
+
+    work = os.path.join(REPO, "build", "cli_smoke_tiny")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = load_config(CLI_TINY).to_dict()
+    prompts = " ".join([cfg["dataset_config"]["prompt"], *cfg["editing_config"]["editing_prompts"]])
+    ckpt = write_tiny_diffusers(os.path.join(work, "tiny_ckpt"), cfg["model_config"], prompts)
+    cfg["dataset_config"]["path"] = write_frames(os.path.join(work, "tiny_frames"), 8, (80, 96), seed=5)
+    cfg.update(config=CLI_TINY, pretrained_model_path=ckpt, mixed_precision="no")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        (logdir, videos), maps = recorded_blends(
+            lambda: cli.test(**cfg, logdir=os.path.join(work, f"tiny_{dev}"), device=dev))
+        runs[dev] = (logdir, videos, maps, artifact_names(logdir))
+    (gdir, gvid, gmaps, gnames), (cdir, cvid, cmaps, cnames) = runs["cuda"], runs["cpu"]
+    if gnames != cnames:
+        raise AssertionError(f"tiny CLI artifacts differ card vs CPU: {sorted(set(gnames) ^ set(cnames))[:10]}")
+    vid_err = max(float(np.abs(a - b).max()) for a, b in zip(gvid, cvid))
+    map_err = max(((a - b).abs().max().item() for (a, _), (b, _) in zip(gmaps, cmaps)), default=0.0)
+    margin = min(((b - th).abs().min().item() for b, th in cmaps), default=float("inf"))
+    masks = [n for n in cnames if n.endswith(".png") and "_blend_mask" in n]
+    same = all(np.array_equal(np.asarray(Image.open(os.path.join(gdir, n))), np.asarray(Image.open(os.path.join(cdir, n))))
+               for n in masks)
+    log(f"[cli tiny] {len(cnames)} artifacts, names equal; decoded videos max_abs_err {vid_err:.3e} "
+        f"(tol {CLI_VIDEO_TOL}); {len(cmaps)} blend maps max_abs_err {map_err:.3e} (tol {MODES_MAP_TOL}), closest "
+        f"CPU pixel {margin:.3e} from its threshold; {len(masks)} mask PNGs equal {same}")
+    if len(gmaps) != len(cmaps) or not masks:
+        raise AssertionError(f"tiny CLI: {len(gmaps)} vs {len(cmaps)} blend maps, {len(masks)} mask PNGs")
+    if not (vid_err <= CLI_VIDEO_TOL and map_err <= MODES_MAP_TOL and margin > MODES_MAP_TOL and same):
+        raise AssertionError("the tiny CLI run on the card disagrees with the CPU's")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def cli_k1_expected(unet, latent, steps, n_prompts, plan, window):
+    """K1 launches of one CLI edit run from the sites' shapes: the inversion
+    captures the plan's rows (a plain forward elsewhere); each prompt's edit
+    (viz on, so the (latent/4)^2 cross sites materialise) runs stored where
+    the payload serves it, replays (a capture-only forward, then the edit)
+    up to the edit window, and runs the identity-gated tail stored."""
+    s16 = (latent // 4) ** 2
+    per = {kind: k1_per_forward(unet, latent, kind, s16) for kind in ("plain", "capture", "capture_only", "edit")}
+    k = 0 if plan is None else plan[1]
+    w_id = steps if k == steps else max(window, k)
+    invert = k * per["capture"] + (steps - k) * per["plain"]
+    replay = (w_id - k) if plan is not None else steps
+    edit = (steps - replay) * per["edit"] + replay * (per["capture_only"] + per["edit"])
+    return invert + n_prompts * edit, per
+
+
+def cli_full_width(name, path, work, frames, kernels, reset_counts, check_plain):
+    """A shipped config through cli.edit.run at full SD-1.4 width, as shipped
+    but for its frames (8 synthetic 512^2 PNGs) and its logdir: its
+    pretrained_model_path (./ckpt/...) is absent, so the loader warns and
+    builds random:sd, as the JAX package does. Returns the run's numbers."""
+    import torch
+
+    from fatezero_tpu_torch.cli import edit as cli
+    from fatezero_tpu_torch.common.config import load_config
+    from fatezero_tpu_torch.models.loader import _unet_cfg_overrides
+    from fatezero_tpu_torch.models.unet3d import UNet3DConfig, UNetPseudo3DConditionModel
+    from fatezero_tpu_torch.pipelines import fatezero_pipeline as FPM
+
+    cfg = load_config(path).to_dict()
+    cfg["dataset_config"]["path"] = frames
+    logdir = os.path.join(work, name)
+    cfg["logdir"] = logdir
+    seen = {"edit_s": [], "decode_s": []}
+    Pipe = FPM.FateZeroPipeline
+    plan_capture, invert_fast, edit_fast, decode = Pipe.plan_capture, Pipe.invert_fast, Pipe.edit_fast, Pipe.decode_latents
+
+    def planned(self, latents, steps, window, budget_bytes, **kw):
+        plan = plan_capture(self, latents, steps, window, budget_bytes, **kw)
+        seen.update(plan=plan, window=window, budget=budget_bytes,
+                    predicted=0 if plan is None else self.capture_payload_bytes(latents, plan[1]))
+        return plan
+
+    def inverted(self, *args, **kw):
+        out = invert_fast(self, *args, **kw)
+        if kw.get("capture"):
+            seen["held"] = sum(t.numel() * t.element_size() for t in FPM._payload_leaves(out[1]))
+        return out
+
+    def timed(fn, key):
+        def wrapped(self, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *args, **kw)
+            torch.cuda.synchronize()
+            seen[key].append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    Pipe.plan_capture, Pipe.invert_fast = planned, inverted
+    Pipe.edit_fast, Pipe.decode_latents = timed(edit_fast, "edit_s"), timed(decode, "decode_s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out_dir, videos = cli.run(cfg)
+    finally:
+        Pipe.plan_capture, Pipe.invert_fast, Pipe.edit_fast, Pipe.decode_latents = (
+            plan_capture, invert_fast, edit_fast, decode)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    check_plain(f"cli {name}")
+    with open(os.path.join(out_dir, "phase_timings.json")) as f:
+        timings = {k: v["seconds"] for k, v in json.load(f).items()}
+    steps = int(cfg["editing_config"]["num_inference_steps"])
+    prompts = list(cfg["editing_config"]["editing_prompts"])
+    n_frames = int(cfg["dataset_config"]["n_sample_frame"])
+    meta = UNetPseudo3DConditionModel(UNet3DConfig(**_unet_cfg_overrides(cfg["model_config"])),
+                                      dtype=torch.bfloat16, device="meta")
+    k1_expect, per = cli_k1_expected(meta, RES // 8, steps, len(prompts), seen.get("plan"), seen.get("window", 0))
+    names = artifact_names(out_dir)
+    expect = {"input.gif", "grid.gif", "step_0.gif", "step_0atten.gif", "config.yml", "log.log", "phase_timings.json"}
+    for i in range(len(prompts)):
+        expect |= {f"step_0_{i}_0.gif", f"step_0_{i}_0atten.gif"} | {f"step_0_{i}_0/{j:05d}.png" for j in range(n_frames)}
+    masks = {}
+    for i, block in (cfg["editing_config"].get("p2p_config") or {}).items():
+        for flag, sub in (("blend_latents", "latent_blend_mask"), ("blend_self_attention", "attention_blend_mask")):
+            if block.get("blend_words") and block.get(flag):
+                want = {f"prompt_{i}/{sub}/mask_step{s:03d}_{s + 1:03d}_{j:02d}.png"
+                        for s in range(steps) for j in range(n_frames)}
+                masks[f"prompt_{i}/{sub}"] = len(want)
+                expect |= want
+    missing = sorted(expect - set(names))
+    finite = all(np.isfinite(v).all() and v.shape == (n_frames, RES, RES, 3) for v in videos)
+    result = dict(
+        config=os.path.relpath(path, REPO), phase_seconds=timings, wall_s=wall,
+        edit_fast_s=seen["edit_s"], decode_s=seen["decode_s"],
+        artifact_s=timings["editing"] - sum(seen["edit_s"]) - sum(seen["decode_s"]), plan=seen.get("plan"),
+        window=seen.get("window"), budget_bytes=seen.get("budget"), payload_predicted=seen.get("predicted"),
+        payload_held=seen.get("held"), peak_gib=peak / 2**30, k1=launches["flash_forward"], k1_expected=k1_expect,
+        k1_per_forward=per, launches=launches, artifacts=len(names), mask_pngs=masks, videos_finite=finite,
+    )
+    log(f"[cli] {name}: {json.dumps(result)}")
+    log(f"[cli] {name} artifact names (frame folders and masks folded): "
+        + json.dumps(sorted({n.split('/')[0] if '/' in n else n for n in names})))
+    if missing or not finite or len(videos) != len(prompts):
+        raise AssertionError(f"cli {name}: missing artifacts {missing[:10]}, videos finite {finite}, "
+                             f"{len(videos)} videos for {len(prompts)} prompts")
+    if launches["flash_forward"] != k1_expect:
+        raise AssertionError(f"cli {name}: K1 launched {launches['flash_forward']} times, the sites' shapes give {k1_expect}")
+    if seen.get("plan") is not None and seen.get("held") != seen.get("predicted"):
+        raise AssertionError(f"cli {name}: payload predicted {seen.get('predicted')}, held {seen.get('held')}")
+    return result
+
+
+def cli_phase(kernels, reset_counts, check_plain):
+    """The edit CLI at full width: the teaser and the blend config, 50 steps each."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(REPO, "build", "cli_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    frames = write_frames(os.path.join(work, "frames"), FRAMES, (RES, RES), seed=7)
+    results = {}
+    try:
+        for name, path in (("teaser", CLI_TEASER), ("blend", CLI_BLEND)):
+            results[name], _ = phase(f"cli {name}", lambda: cli_full_width(
+                name, path, work, frames, kernels, reset_counts, check_plain))
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1344,6 +1669,7 @@ def main() -> int:
     phase("reference (tiny edit, card vs CPU)", reference)
     phase("reference (tiny tuning update, card vs CPU)", tiny_tuning_reference)
     phase("reference (tiny edit modes, card vs CPU)", tiny_modes_reference)
+    phase("reference (tiny CLI run, card vs CPU)", tiny_cli_reference)
 
     # every plain attention call on the card, and every plain call of a
     # kernel's version on the card, is recorded: the main paths must make none
@@ -1480,6 +1806,9 @@ def main() -> int:
 
     # ---- main path b2: the blend config's edit modes at full width
     modes, t_modes = full_width_modes(device, kernels, reset_counts, check_plain)
+
+    # ---- main path b3: the edit CLI on the shipped teaser and blend configs
+    cli_phase(kernels, reset_counts, check_plain)
 
     # ---- main path c: one-shot tuning at full width
     m, trainer, video, emb = tuning_setup(device, "random:sd", JEEP, torch.bfloat16, FRAMES, RES, TUNE_SEED, TUNE_LR)

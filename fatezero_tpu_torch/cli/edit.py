@@ -1,0 +1,279 @@
+"""Zero-shot video-edit entry point of the port.
+
+    python3 -m fatezero_tpu_torch.cli.edit --config config/teaser/jeep_watercolor.yaml
+
+Counterpart of fatezero_tpu/cli/edit.py: the same YAML schema
+(dataset_config / editing_config with `use_invertion_latents` [sic] and
+per-prompt `p2p_config.<i>` blocks / model_config / seed), the same guards
+and flow, and the same result layout in a timestamped logdir: log.log,
+input.gif, the per-prompt gif + mp4 + frame folder with its attention gif,
+the blend masks' PNGs, the grids, phase_timings.json and config.yml.
+
+The edit runs on the fused path: `invert_fast` with the attention payload
+captured (all rows, or the rows a payload budget allows: FZ_PAYLOAD_BUDGET_GB,
+8 by default), then `edit_fast` per prompt. It runs on the card unless the
+caller of `test` passes device="cpu". Not ported yet, and raising with the
+ROADMAP.md queue item that brings them: the streaming store (`disk_store`,
+`save_attention_maps`, generation mode, `use_inversion_attention: false`;
+item 3) and multiple devices (`sharding`, `--mesh`; item 7).
+"""
+from __future__ import annotations
+
+import gc
+import logging
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from fatezero_tpu_torch.common.config import instantiate_from_config, load_config, save_config
+from fatezero_tpu_torch.common.image_util import save_gif_mp4_folder_type
+from fatezero_tpu_torch.common.profiling import PhaseTimer, trace
+from fatezero_tpu_torch.data.dataset import ImageSequenceDataset
+from fatezero_tpu_torch.models.loader import load_models
+from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+from fatezero_tpu_torch.pipelines.p2p_validation_loop import STREAMING_STORE, P2pSampleLogger
+
+MULTI_DEVICE = "multiple devices are not ported yet (ROADMAP.md queue 1 item 7)"
+
+
+def _logdir_for(config_path: str, logdir: Optional[str]) -> str:
+    if logdir:
+        return logdir
+    stem = os.path.splitext(os.path.basename(config_path))[0]
+    stamp = time.strftime("%Y-%m-%dT%H-%M-%S")
+    return os.path.join("result", stem, stamp)
+
+
+def test(
+    config: str = "config.yaml",
+    pretrained_model_path: str = "random:sd",
+    dataset_config: Optional[dict] = None,
+    editing_config: Optional[dict] = None,
+    model_config: Optional[dict] = None,
+    test_pipeline_config: Optional[dict] = None,
+    seed: int = 0,
+    mixed_precision: str = "bf16",
+    logdir: Optional[str] = None,
+    disk_store: bool = False,
+    profile: bool = False,
+    sharding: Optional[dict] = None,
+    device="cuda",
+    **kwargs,
+):
+    """Run one editing workload; returns (logdir, decoded videos)."""
+    dataset_config = dict(dataset_config or {})
+    editing_config = dict(editing_config or {})
+    if not editing_config.get("use_invertion_latents", True) and editing_config.get(
+        "use_inversion_attention", True
+    ):
+        # generation mode has no inversion trajectory: replaying the
+        # fabricated clean-latent "trajectory" as inversion attention would
+        # silently produce garbage, so this combination is a config error
+        raise ValueError(
+            "editing_config: use_invertion_latents: false (generation mode) "
+            "requires use_inversion_attention: false — there is no inversion "
+            "attention to fuse. Set use_inversion_attention: false for "
+            "save/swap-style generation editing."
+        )
+    if sharding:
+        raise NotImplementedError(f"sharding: {MULTI_DEVICE}")
+    for key, on in (
+        ("disk_store", disk_store),
+        ("save_attention_maps", editing_config.get("save_attention_maps", False)),
+        ("use_invertion_latents: false (generation mode)", not editing_config.get("use_invertion_latents", True)),
+        ("use_inversion_attention: false", not editing_config.get("use_inversion_attention", True)),
+    ):
+        if on:
+            raise NotImplementedError(f"{key}: {STREAMING_STORE}")
+    logdir = _logdir_for(config, logdir)
+    os.makedirs(logdir, exist_ok=True)
+    # every run logs to logdir/log.log
+    logging.basicConfig(
+        level=logging.INFO,
+        handlers=[
+            logging.StreamHandler(),
+            logging.FileHandler(os.path.join(logdir, "log.log")),
+        ],
+        force=True,
+    )
+    log = logging.getLogger("fatezero_tpu_torch.edit")
+    log.info("editing run: config=%s logdir=%s device=%s", config, logdir, device)
+    device = torch.device(device)
+    timer = PhaseTimer(device)
+
+    on_card = device.type == "cuda"
+    dtype = torch.bfloat16 if (mixed_precision in ("fp16", "bf16") and on_card) else torch.float32
+
+    with timer.phase("load_models", sync=False):
+        bundle = load_models(pretrained_model_path, model_config, dtype=dtype, seed=seed, device=device)
+    # `test_pipeline_config.target` selects the pipeline class (a target
+    # under fatezero_tpu. resolves to the port's module of that name); the
+    # model bundle is passed as the constructor kwargs
+    pipeline_kwargs = dict(
+        unet=bundle.unet,
+        vae=bundle.vae,
+        text_encoder=bundle.text_encoder,
+        tokenizer=bundle.tokenizer,
+        schedule=bundle.schedule,
+        device=device,
+    )
+    if test_pipeline_config and test_pipeline_config.get("target"):
+        pipe = instantiate_from_config(test_pipeline_config, **pipeline_kwargs)
+    else:
+        pipe = FateZeroPipeline(**pipeline_kwargs)
+
+    dataset = ImageSequenceDataset(**dataset_config)
+    video = dataset[0]["images"]  # [f, h, w, 3] in [-1, 1], numpy
+    source_video = video / 2 + 0.5
+    save_gif_mp4_folder_type(source_video, os.path.join(logdir, "input.gif"))
+
+    source_prompt = editing_config.get("source_prompt", dataset_config.get("prompt", ""))
+    num_steps = int(editing_config.get("num_inference_steps", 50))
+    emb_src = pipe.encode_prompt(source_prompt)
+    with timer.phase("vae_encode"):
+        latents = pipe.encode_video(torch.from_numpy(np.ascontiguousarray(video)).to(device))
+
+    sample_seeds = [int(s) for s in editing_config.get("sample_seeds", [seed])]
+    logger = P2pSampleLogger(
+        editing_prompts=editing_config.get("editing_prompts", [source_prompt]),
+        logdir=logdir,
+        source_prompt=source_prompt,
+        num_inference_steps=num_steps,
+        guidance_scale=float(editing_config.get("guidance_scale", 7.5)),
+        sample_seeds=sample_seeds,
+        p2p_config=editing_config.get("p2p_config", {}),
+        use_inversion_attention=bool(editing_config.get("use_inversion_attention", True)),
+        strength=editing_config.get("strength"),
+        annotate=bool(editing_config.get("annotate", False)),
+    )
+
+    # capture the controlled sites' payloads during the inversion itself
+    # (cross probabilities + self (q, k), on the device), so that the edits
+    # run the bare 2-row CFG forward; `stored_attention: false` replays
+    # instead, for workloads whose payload exceeds the device
+    use_stored = bool(editing_config.get("stored_attention", True))
+    traj = stored = capture_rows = None
+    if use_stored:
+        # a failed capture costs a whole inversion, so trim it beforehand to
+        # the rows the budget holds (a meta-device trace, no device work):
+        # full capture when every step fits, a hybrid (stored prefix, replay
+        # middle, identity-gated tail) otherwise, full replay when not one
+        # row fits. FZ_PAYLOAD_BUDGET_GB overrides the 8 GB default.
+        budget = float(os.environ.get("FZ_PAYLOAD_BUDGET_GB", 8)) * 1e9
+        capture_rows = pipe.plan_capture(
+            latents,
+            num_steps,
+            window=logger.max_edit_window(pipe),
+            budget_bytes=budget,
+            strength=logger.strength,
+            use_inversion_attention=logger.use_inversion_attention,
+        )
+        if capture_rows is None:
+            log.warning(
+                "predicted attention payload %.1f GB exceeds the %.1f GB budget at "
+                "every trim; using replay rematerialization (stored_attention: "
+                "false). Raise FZ_PAYLOAD_BUDGET_GB to force capture.",
+                pipe.capture_payload_bytes(latents, num_steps) / 1e9,
+                budget / 1e9,
+            )
+            use_stored = False
+        elif capture_rows[1] < num_steps:
+            log.info(
+                "trimmed attention capture to inversion rows [%d, %d) to fit the %.1f GB payload budget",
+                capture_rows[0],
+                capture_rows[0] + capture_rows[1],
+                budget / 1e9,
+            )
+    with timer.phase("inversion"):
+        if use_stored:
+            try:
+                traj, stored = pipe.invert_fast(
+                    latents, emb_src, num_steps, capture=True, capture_rows=capture_rows
+                )
+            except torch.cuda.OutOfMemoryError:
+                log.warning(
+                    "attention payload exceeds device memory at this workload; falling "
+                    "back to replay rematerialization (stored_attention: false)"
+                )
+                traj = stored = None
+        if traj is None:
+            # the failed attempt's tensors can sit in reference cycles of the
+            # dropped exception's frames: collect them before the replay
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            traj = pipe.invert_fast(latents, emb_src, num_steps)
+
+    with timer.phase("editing"), trace(os.path.join(logdir, "trace") if profile else None):
+        videos = logger.log_sample_images(
+            pipe,
+            source_video,
+            traj=traj,
+            emb_source=emb_src,
+            stored=stored,
+            stored_row0=capture_rows[0] if (capture_rows and stored is not None) else 0,
+        )
+    timer.save(os.path.join(logdir, "phase_timings.json"))
+    log.info("%s", timer)
+    save_config(
+        {
+            "config": config,
+            "pretrained_model_path": pretrained_model_path,
+            "dataset_config": dataset_config,
+            "editing_config": {k: v for k, v in editing_config.items() if k != "p2p_config"},
+            "seed": seed,
+            "logdir": logdir,
+        },
+        os.path.join(logdir, "config.yml"),
+    )
+    return logdir, videos
+
+
+def run(config, mesh: Optional[str] = None, **overrides):
+    """Load a YAML config (or take a dict) and run it; keyword overrides
+    replace top-level keys (e.g. logdir=..., device="cpu"). A tuned model's
+    folder of checkpoint_* subdirectories runs once per checkpoint
+    (filtered by pretrained_epoch_list)."""
+    if mesh:
+        raise NotImplementedError(f"--mesh: {MULTI_DEVICE}")
+    d = load_config(config).to_dict()
+    d.setdefault("config", config if isinstance(config, str) else "config.yaml")
+    d.update(overrides)
+    pmp = d.get("pretrained_model_path", "random:sd")
+    if os.path.isdir(pmp):
+        ckpts = sorted(
+            p
+            for p in os.listdir(pmp)
+            if p.startswith("checkpoint_") and os.path.isdir(os.path.join(pmp, p))
+        )
+        epoch_list = d.get("pretrained_epoch_list")
+        if ckpts:
+            outs = []
+            for ck in ckpts:
+                epoch = int(ck.split("_")[-1])
+                if epoch_list is not None and epoch not in epoch_list:
+                    continue
+                sub = dict(d)
+                sub["pretrained_model_path"] = os.path.join(pmp, ck)
+                outs.append(test(**sub))
+            return outs
+    return test(**d)
+
+
+def main():
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config", type=str, default="config/demo.yaml")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="device mesh shape data,seq,tensor or 'auto' (not ported: raises)")
+    parser.add_argument("--device", type=str, default="cuda", help="torch device to run on (cuda or cpu)")
+    args = parser.parse_args()
+    run(args.config, mesh=args.mesh, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

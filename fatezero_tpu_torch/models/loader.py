@@ -1,26 +1,53 @@
-"""Model bundles with deterministic random weights: `random:tiny` and `random:sd`.
+"""Model bundles: checkpoints and deterministic random weights.
 
-Counterpart of the random-weight part of fatezero_tpu/models/loader.py.
-Weights follow the rules of the JAX package's `_fast_init`: temporal conv
-kernels get the dirac (identity) init, `attn_temporal.to_out` and the LoRA
-up projections are zero, biases are zero, norm gains are one, and every
-other weight is N(0, 0.02), drawn with numpy from `seed` in sorted key order.
+Counterpart of fatezero_tpu/models/loader.py. `load_models(path)` builds
+(unet, vae, text_encoder, tokenizer, schedule) on `device` from
+
+* a diffusers checkpoint folder (tokenizer/, text_encoder/, vae/, unet/,
+  scheduler/): the 2-D Stable-Diffusion weights load by name, since the
+  port's modules use diffusers/HF parameter names; the inflation-added
+  parameters (`temporal` or `lora` in their name) take the random init;
+* a flax-native checkpoint written by the JAX package
+  (fatezero_tpu/common/checkpoint.py), converted with convert/from_flax.py;
+* `random:tiny` / `random:sd`, or a path that does not exist (with a
+  warning, as in JAX): deterministic random weights.
+
+Random weights follow the rules of the JAX package's `_fast_init`: temporal
+conv kernels get the dirac (identity) init, `attn_temporal.to_out` and the
+LoRA up projections are zero, biases are zero, norm gains are one, and every
+other weight is N(0, 0.02), drawn with numpy from `seed` in sorted key order
+(another stream than JAX's, so only the zero and identity leaves agree).
 The modules are built without storage (meta device), their weights made on
-the host and moved to `device` once. Loading diffusers checkpoints and the
-flax-native tuned checkpoints waits for a later slice.
+the host and moved to `device` once.
 """
 from __future__ import annotations
 
+import dataclasses
+import glob
+import json
+import os
+import warnings
 from types import SimpleNamespace
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from fatezero_tpu_torch.common.checkpoint import (
+    is_flax_checkpoint,
+    load_component_config,
+    load_component_params,
+    read_safetensors,
+)
+from fatezero_tpu_torch.convert.from_flax import (
+    clip_text_state_from_flax,
+    unet_state_from_flax,
+    vae_state_from_flax,
+)
 from fatezero_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from fatezero_tpu_torch.models.layers import FusedGroupNorm, FusedLayerNorm
-from fatezero_tpu_torch.models.tokenizer import StubTokenizer
+from fatezero_tpu_torch.models.tokenizer import CLIPTokenizer, StubTokenizer
 from fatezero_tpu_torch.models.unet3d import UNet3DConfig, UNetPseudo3DConditionModel
 from fatezero_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from fatezero_tpu_torch.ops import schedule as S
@@ -53,8 +80,9 @@ def _unet_cfg_overrides(model_config: dict) -> dict:
     return out
 
 
-def random_state(module: nn.Module, seed: int) -> dict:
-    """Deterministic host weights for every parameter of `module` (numpy fp32)."""
+def random_state(module: nn.Module, seed: int, names=None) -> dict:
+    """Deterministic host weights for every parameter of `module` (numpy fp32),
+    or only for those in `names` (the others are neither drawn nor returned)."""
     norm_params = {
         f"{name}.{p}"
         for name, m in module.named_modules()
@@ -64,6 +92,8 @@ def random_state(module: nn.Module, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     state = {}
     for name, p in sorted(module.state_dict().items()):
+        if names is not None and name not in names:
+            continue
         shape = tuple(p.shape)
         if name.endswith("conv_temporal.weight"):
             w = np.zeros(shape, np.float32)  # dirac: identity centre tap
@@ -99,6 +129,40 @@ def load_state(module: nn.Module, state: dict, device) -> nn.Module:
     return module
 
 
+def _read_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _schedule_from_config(cfg: dict, device) -> S.DiffusionSchedule:
+    return S.make_schedule(
+        num_train_timesteps=cfg.get("num_train_timesteps", 1000),
+        beta_start=cfg.get("beta_start", 0.00085),
+        beta_end=cfg.get("beta_end", 0.012),
+        beta_schedule=cfg.get("beta_schedule", "scaled_linear"),
+        set_alpha_to_one=cfg.get("set_alpha_to_one", False),
+        prediction_type=cfg.get("prediction_type", "epsilon"),
+        clip_sample=cfg.get("clip_sample", False),
+        device=device,
+    )
+
+
+def _schedule_at(path: str, device) -> S.DiffusionSchedule:
+    sched_path = os.path.join(path, "scheduler", "scheduler_config.json")
+    if os.path.exists(sched_path):
+        return _schedule_from_config(_read_json(sched_path), device)
+    return S.make_schedule(device=device)
+
+
+def _build(ctor, cfg, dtype, device, state_fn) -> nn.Module:
+    """`ctor(cfg)` without storage, then its weights from `state_fn(module)`
+    on `device`; on the meta device no weights are made."""
+    module = ctor(cfg, dtype=dtype, device="meta")
+    if torch.device(device).type == "meta":
+        return module.eval()
+    return load_state(module, state_fn(module), device).eval()
+
+
 def load_models(
     pretrained_model_path: str,
     model_config: Optional[dict] = None,
@@ -106,31 +170,175 @@ def load_models(
     seed: int = 0,
     device="cuda",
 ) -> SimpleNamespace:
-    """Build (unet, vae, text_encoder, tokenizer, schedule) for `random:tiny` or `random:sd`
-    on `device` (the card unless the caller asks for the CPU)."""
-    if not pretrained_model_path.startswith("random:"):
-        raise NotImplementedError(
-            "only the random:tiny and random:sd builders are ported; checkpoint loading is not"
+    """Build (unet, vae, text_encoder, tokenizer, schedule) on `device` (the
+    card unless the caller asks for the CPU): a directory loads as a
+    checkpoint; `random:tiny` / `random:sd`, or any path that does not exist
+    (with a warning), builds deterministic random weights."""
+    model_config = dict(model_config or {})
+    if os.path.isdir(pretrained_model_path):
+        return _load_pretrained(pretrained_model_path, model_config, dtype, seed, device)
+    is_random = pretrained_model_path.startswith("random")
+    tag = pretrained_model_path.split(":", 1)[-1] if ":" in pretrained_model_path else "sd"
+    if not is_random:
+        warnings.warn(
+            f"pretrained_model_path {pretrained_model_path!r} does not exist; "
+            f"building randomly initialized '{tag}' architecture"
         )
-    tag = pretrained_model_path.split(":", 1)[1]
-    overrides = _unet_cfg_overrides(dict(model_config or {}))
+    overrides = _unet_cfg_overrides(model_config)
     if tag == "tiny":
         unet_cfg = UNet3DConfig(**{**TINY_UNET, **overrides})
         vae_cfg, text_cfg = TINY_VAE, TINY_TEXT
-    elif tag == "sd":
+    elif tag == "sd" or not is_random:
         unet_cfg = UNet3DConfig(**overrides)
         vae_cfg, text_cfg = VAEConfig(), CLIPTextConfig()
     else:
         raise ValueError(f"unknown random checkpoint {pretrained_model_path!r}")
 
-    def build(ctor, *args):
-        module = ctor(*args, dtype=dtype, device="meta")
-        return load_state(module, random_state(module, seed), device).eval()
+    def draw(module):
+        return random_state(module, seed)
 
     return SimpleNamespace(
-        unet=build(UNetPseudo3DConditionModel, unet_cfg),
-        vae=build(AutoencoderKL, vae_cfg),
-        text_encoder=build(CLIPTextModel, text_cfg),
+        unet=_build(UNetPseudo3DConditionModel, unet_cfg, dtype, device, draw),
+        vae=_build(AutoencoderKL, vae_cfg, dtype, device, draw),
+        text_encoder=_build(CLIPTextModel, text_cfg, dtype, device, draw),
         tokenizer=StubTokenizer(vocab_size=text_cfg.vocab_size),
         schedule=S.make_schedule(device=device),
+        pretrained=False,
+    )
+
+
+# ------------------------------------------------------------- diffusers layout
+def load_torch_state(model_dir: str) -> Dict[str, np.ndarray]:
+    """A diffusers weight file as {key: numpy array}: the first *.safetensors,
+    else the first *.bin (torch.load with weights_only)."""
+    st = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
+    if st:
+        return read_safetensors(st[0])
+    bins = sorted(glob.glob(os.path.join(model_dir, "*.bin")))
+    if not bins:
+        raise FileNotFoundError(f"no weight file under {model_dir}")
+    sd = torch.load(bins[0], map_location="cpu", weights_only=True)
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy() for k, v in sd.items()}
+
+
+def _unet_keys(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A diffusers UNet state_dict under the port's names: BatchNorm counters
+    dropped, and the transformers' 1x1-conv proj_in/proj_out as linears."""
+    out = {}
+    for k, v in state.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith((".proj_in.weight", ".proj_out.weight")) and ".attentions." in k and v.ndim == 4:
+            v = v[:, :, 0, 0]
+        out[k] = v
+    return out
+
+
+def _text_keys(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The text tower's keys of an HF CLIP state_dict (its position_ids buffer dropped)."""
+    return {k: v for k, v in state.items() if k.startswith("text_model.") and "position_ids" not in k}
+
+
+def merge_checkpoint(module: nn.Module, ckpt: Dict[str, np.ndarray], seed: int, what: str) -> dict:
+    """The module's state: `ckpt` over random_state for the parameters it lacks.
+    As strict as the JAX package's merge_into_params with its converters'
+    leftover checks: every checkpoint key must name a parameter of the same
+    shape, and a parameter may be missing from the checkpoint only if it was
+    added by the 2-D -> pseudo-3-D inflation (`temporal` or `lora` in its name)."""
+    own = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    for k, v in ckpt.items():
+        if k not in own:
+            raise KeyError(f"{what} checkpoint key {k} not in model params")
+        if tuple(v.shape) != own[k]:
+            raise ValueError(f"shape mismatch at {what} {k}: ckpt {tuple(v.shape)} vs model {own[k]}")
+    missing = [k for k in own if k not in ckpt]
+    bad = [k for k in missing if "temporal" not in k and "lora" not in k]
+    if bad:
+        raise KeyError(f"{what} model param {bad[0]} missing from checkpoint ({len(bad)} in all)")
+    return {**random_state(module, seed, names=set(missing)), **ckpt}
+
+
+def _load_pretrained(path: str, model_config: dict, dtype, seed: int, device="cuda") -> SimpleNamespace:
+    if is_flax_checkpoint(path):
+        return _load_flax_native(path, model_config, dtype, device)
+    tokenizer = CLIPTokenizer.from_pretrained(path)
+
+    unet_json = _read_json(os.path.join(path, "unet", "config.json"))
+    unet_cfg = UNet3DConfig.from_reference({**unet_json, **model_config})
+    unet_ckpt = _unet_keys(load_torch_state(os.path.join(path, "unet")))
+    unet = _build(UNetPseudo3DConditionModel, unet_cfg, dtype, device,
+                  lambda m: merge_checkpoint(m, unet_ckpt, seed, "UNet"))
+
+    vae_json = _read_json(os.path.join(path, "vae", "config.json"))
+    vae_cfg = VAEConfig(
+        block_out_channels=tuple(vae_json.get("block_out_channels", (128, 256, 512, 512))),
+        layers_per_block=vae_json.get("layers_per_block", 2),
+        latent_channels=vae_json.get("latent_channels", 4),
+        norm_num_groups=vae_json.get("norm_num_groups", 32),
+        scaling_factor=vae_json.get("scaling_factor", 0.18215),
+    )
+    vae_ckpt = load_torch_state(os.path.join(path, "vae"))
+    vae = _build(AutoencoderKL, vae_cfg, dtype, device, lambda m: merge_checkpoint(m, vae_ckpt, seed, "VAE"))
+
+    text_json = _read_json(os.path.join(path, "text_encoder", "config.json"))
+    text_cfg = CLIPTextConfig(
+        vocab_size=text_json.get("vocab_size", 49408),
+        hidden_size=text_json.get("hidden_size", 768),
+        intermediate_size=text_json.get("intermediate_size", 3072),
+        num_layers=text_json.get("num_hidden_layers", 12),
+        num_heads=text_json.get("num_attention_heads", 12),
+        max_position_embeddings=text_json.get("max_position_embeddings", 77),
+    )
+    text_ckpt = _text_keys(load_torch_state(os.path.join(path, "text_encoder")))
+    text_encoder = _build(CLIPTextModel, text_cfg, dtype, device,
+                          lambda m: merge_checkpoint(m, text_ckpt, seed, "CLIP text"))
+    return SimpleNamespace(
+        unet=unet, vae=vae, text_encoder=text_encoder, tokenizer=tokenizer,
+        schedule=_schedule_at(path, device), pretrained=True,
+    )
+
+
+# ----------------------------------------------------------- flax-native layout
+def _cfg_from(saved: dict, cls, **extra):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    clean = {k: tuple(v) if isinstance(v, list) else v for k, v in saved.items() if k in fields}
+    clean.update(extra)
+    return cls(**clean)
+
+
+def _load_flax_native(path: str, model_config: dict, dtype, device="cuda") -> SimpleNamespace:
+    """A checkpoint the JAX package saved (common/checkpoint.py: flax trees as
+    safetensors, a config.json per component), converted by name."""
+    unet_saved = load_component_config(os.path.join(path, "unet")) or {}
+    # saved sparse indices may be ['-1', 'first'] after json default=str
+    if "sparse_causal_indices" in unet_saved:
+        unet_saved["sparse_causal_indices"] = [
+            int(x) if isinstance(x, str) and x.lstrip("-").isdigit() else x
+            for x in unet_saved["sparse_causal_indices"]
+        ]
+    if unet_saved.get("lora") in ("None", None):
+        unet_saved["lora"] = None
+    else:
+        unet_saved["lora"] = int(unet_saved["lora"])
+    unet_cfg = _cfg_from({**unet_saved, **_unet_cfg_overrides(model_config)}, UNet3DConfig)
+    unet_params = load_component_params(os.path.join(path, "unet"))
+    unet = _build(UNetPseudo3DConditionModel, unet_cfg, dtype, device, lambda m: unet_state_from_flax(unet_params))
+
+    def opt_component(sub, cls, model_cls, convert):
+        d = os.path.join(path, sub)
+        if not os.path.exists(os.path.join(d, "flax_model.safetensors")):
+            return None
+        cfg = _cfg_from(load_component_config(d) or {}, cls)
+        params = load_component_params(d)
+        return _build(model_cls, cfg, dtype, device, lambda m: convert(params))
+
+    vae = opt_component("vae", VAEConfig, AutoencoderKL, vae_state_from_flax)
+    text_encoder = opt_component("text_encoder", CLIPTextConfig, CLIPTextModel, clip_text_state_from_flax)
+    if os.path.exists(os.path.join(path, "tokenizer", "vocab.json")):
+        tokenizer = CLIPTokenizer.from_pretrained(path)
+    else:
+        tokenizer = StubTokenizer(vocab_size=text_encoder.cfg.vocab_size if text_encoder else 49408)
+    return SimpleNamespace(
+        unet=unet, vae=vae, text_encoder=text_encoder, tokenizer=tokenizer,
+        schedule=_schedule_at(path, device), pretrained=True,
     )

@@ -38,6 +38,7 @@ class UNet3DConfig:
     """Static architecture config (diffusers unet config + FateZero model_config:
     lora / SparseCausalAttention_index / least_sc_channel / temporal_downsample_time)."""
 
+    sample_size: int = 64  # latent side of the checkpoint's training resolution
     in_channels: int = 4
     out_channels: int = 4
     down_block_types: Tuple[str, ...] = (
@@ -68,6 +69,24 @@ class UNet3DConfig:
     # tuning-time recomputation of each down/mid/up block (reference
     # unet_3d_blocks.py:308-326); off while a controller records maps
     gradient_checkpointing: bool = False
+
+    @classmethod
+    def from_reference(cls, config: dict) -> "UNet3DConfig":
+        """Build from a diffusers unet config.json dict with the FateZero
+        model_config keys laid over it, as the JAX package's from_reference:
+        2D block types become their Pseudo3D counterparts, unknown keys drop."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        mapped = {}
+        for key, value in config.items():
+            if key == "SparseCausalAttention_index":
+                mapped["sparse_causal_indices"] = tuple(value)
+            elif key == "temporal_downsample" and value:
+                mapped["temporal_downsample_time"] = 3
+            elif key in ("down_block_types", "up_block_types"):
+                mapped[key] = tuple(v.replace("2D", "Pseudo3D") for v in value)
+            elif key in known:
+                mapped[key] = tuple(value) if isinstance(value, list) else value
+        return cls(**mapped)
 
     def block_sparse_indices(self, dim: int):
         """Frame-local self-attention (no gather) below least_sc_channel."""

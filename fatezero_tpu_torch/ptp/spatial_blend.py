@@ -16,7 +16,8 @@ the five maps at that resolution (fatezero_pipeline._blend_maps_16).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,7 +97,7 @@ def blend_mask(
 
 @dataclasses.dataclass
 class SpatialBlender:
-    """Config of one blender.
+    """Config of one blender, and the masks it recorded (``record``).
 
     prompt_choose='source' gives the self-attention mask from the source row
     only; 'both' the union of the source and target masks, for the latent blend.
@@ -107,9 +108,13 @@ class SpatialBlender:
     end_blend: int
     th: Tuple[float, float] = (0.3, 0.3)
     prompt_choose: str = "source"
+    save_path: Optional[str] = None
     # indicator of words whose own (unpooled, th[1]-thresholded) mask is
     # carved out of the main mask
     substruct_layers: Optional[np.ndarray] = None
+
+    counter: int = 0
+    mask_list: List[np.ndarray] = dataclasses.field(default_factory=list)
 
     @classmethod
     def create(
@@ -122,6 +127,7 @@ class SpatialBlender:
         end_blend: float = 0.8,
         th=(0.3, 0.3),
         prompt_choose: str = "source",
+        save_path: Optional[str] = None,
         substruct_words=None,
     ) -> "SpatialBlender":
         assert prompt_choose in ("source", "both")
@@ -131,6 +137,7 @@ class SpatialBlender:
             end_blend=int(end_blend * num_steps),
             th=tuple(th) if not isinstance(th, (int, float)) else (th, th),
             prompt_choose=prompt_choose,
+            save_path=save_path,
             substruct_layers=None
             if substruct_words is None
             else word_alpha_layers(prompts, substruct_words, tokenizer),
@@ -153,6 +160,22 @@ class SpatialBlender:
                 sub = torch.maximum(sub[:1], sub)
             mask = mask * (1.0 - sub)
         return mask
+
+    def record(self, mask: np.ndarray, save_tag: str = "") -> None:
+        """Keep one step's mask and, with a save_path, write its last row as
+        one PNG per frame, `mask_{save_tag}_{counter:03d}_{frame:02d}.png`
+        holding uint8(mask * 255), as the JAX package writes them."""
+        self.mask_list.append(np.asarray(mask))
+        if self.save_path is None:
+            return
+        from PIL import Image
+
+        os.makedirs(self.save_path, exist_ok=True)
+        m = np.asarray(mask)
+        m = m[-1] if m.ndim == 4 else m  # [f, h, w]
+        for fi, frame in enumerate(m):
+            img = Image.fromarray((np.asarray(frame) * 255).astype(np.uint8))
+            img.save(os.path.join(self.save_path, f"mask_{save_tag}_{self.counter:03d}_{fi:02d}.png"))
 
     def latent_blend_active(self, step: int) -> bool:
         """The blend window: edit step `step` is the reference's 1-based counter step + 1."""

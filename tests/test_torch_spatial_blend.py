@@ -13,10 +13,13 @@ threshold could flip between the two: masks are compared exactly outside the
 band |m - th| <= BAND, and each case asserts that no pixel lies inside it
 at its seed. Index and selection ops (resize, pool, latent blend) are exact.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from fatezero_tpu.models.tokenizer import StubTokenizer as JTokenizer
 from fatezero_tpu.ptp import spatial_blend as J
@@ -125,15 +128,32 @@ def test_mask_for_matches_jax(choose, substruct):
 
 
 def test_latent_blend_active_and_record_match_jax(tmp_path):
-    """The blend window as JAX's; recording masks (`save_path`) belongs to the
-    streaming store's sample, which is not ported, so asking for it raises
-    instead of being ignored."""
+    """The blend window as JAX's; `make_controller(save_path=...)` gives both
+    blenders JAX's mask directories, and `record` writes the same PNG names
+    and pixels (uint8 of mask * 255, the last row, one file per frame)."""
     tb, jb = _blenders("both", False)
     assert [tb.latent_blend_active(i) for i in range(10)] == [jb.latent_blend_active(i) for i in range(10)]
-    with pytest.raises(NotImplementedError, match="save_path"):
-        make_controller(StubTokenizer(), [SOURCE, TARGET], num_steps=10, blend_words=WORDS, blend_latents=True,
-                        save_path=str(tmp_path))
-    assert not any(tmp_path.iterdir())
+    kw = dict(num_steps=10, blend_words=WORDS, blend_latents=True, blend_self_attention=True)
+    tc = make_controller(StubTokenizer(), [SOURCE, TARGET], save_path=str(tmp_path / "torch"), **kw)
+    jc = jmake_controller(JTokenizer(), [SOURCE, TARGET], save_path=str(tmp_path / "jax"), **kw)
+    rng = np.random.RandomState(5)
+    for name, p in (("latent_blend", P), ("attention_blend", 1)):
+        tb, jb = getattr(tc, name), getattr(jc, name)
+        assert tb.save_path == str(tmp_path / "torch" / f"{name}_mask")
+        assert jb.save_path == str(tmp_path / "jax" / f"{name}_mask")
+        for step in range(2):
+            mask = (rng.rand(p, F, 8, 8) > 0.5).astype(np.float32)
+            for b in (tb, jb):
+                b.counter += 1
+                b.record(mask, f"step{b.counter - 1:03d}")
+            np.testing.assert_array_equal(tb.mask_list[-1], jb.mask_list[-1])
+        t_files = sorted(os.listdir(tb.save_path))
+        assert t_files == sorted(os.listdir(jb.save_path)) and len(t_files) == 2 * F
+        for f in t_files:
+            np.testing.assert_array_equal(np.asarray(Image.open(os.path.join(tb.save_path, f))),
+                                          np.asarray(Image.open(os.path.join(jb.save_path, f))))
+    tb.record(torch.from_numpy(mask), "t")  # a tensor on the CPU records as its array
+    np.testing.assert_array_equal(tb.mask_list[-1], mask)
 
 
 def test_apply_latent_blend_matches_jax():
