@@ -45,6 +45,14 @@ Phases, each synchronised and timed:
    weights written to build/: the same artifact names, decoded videos within
    CLI_VIDEO_TOL, blend maps within MODES_MAP_TOL with the band empty, mask
    PNGs equal;
+   tuning CLI reference: config/tune_demo_tiny.yaml through cli.train.train
+   on the card and on the CPU (fp32, random:tiny, synthetic frames, 2
+   updates, validation and a checkpoint at step 2): losses, validation
+   videos, artifact names and the written checkpoint's tensors;
+   streaming reference: invert(store=...) and sample at a small size (the
+   modes' UNet and weights): refine + reweight, replace with both blends,
+   strength 0.5 and the save/swap edit, each edit on the card from the
+   CPU's store;
 6. the main paths at full SD-1.4 width (random:sd weights from a seed), each
    driven with every launch count set to 0 just before it and read just
    after:
@@ -64,12 +72,14 @@ Phases, each synchronised and timed:
       on the stored edit's trajectory, replay and hybrid must agree with
       stored to one bf16 unit;
    b3. the edit CLI, `fatezero_tpu_torch.cli.edit.run`, on two shipped
-      configs at full width as shipped (50 steps, bf16) but for their frames
-      (8 synthetic 512x512 PNGs) and logdir; their ./ckpt/ paths are absent,
-      so the loader builds random:sd: config/teaser/jeep_watercolor.yaml
-      (two prompts; its payload fits the 8 GB budget: a full capture) and
-      config/teaser/jeep_posche_local_latent_blend.yaml (both blends; over
-      the budget: a hybrid). Each `[cli]` line gives the CLI's own
+      configs at full width as shipped (bf16) but for their frames (8
+      synthetic 512x512 PNGs), logdir and depth (CLI_STEPS steps, cut from
+      50); their ./ckpt/ paths are absent, so the loader builds random:sd:
+      config/teaser/jeep_watercolor.yaml (two prompts; its payload fits the
+      8 GB budget: a full capture) and
+      config/teaser/jeep_posche_local_latent_blend.yaml (both blends; under
+      CLI_BLEND_BUDGET_GB: a hybrid, as at 50 steps under 8 GB). Each
+      `[cli]` line gives the CLI's own
       phase_timings.json, the wall time, the capture plan, the payload
       predicted and held, the peak memory, K1's launches against the count
       from the sites' shapes (viz on) and the artifacts; every expected
@@ -78,6 +88,32 @@ Phases, each synchronised and timed:
    c. tuning: three updates of config/tune/jeep.yaml's settings (lora 160,
       gradient checkpointing, temporal convs trained, lr 1e-5 constant, seed
       74831) on 8 frames at 512x512 in bf16;
+   c2. the tuning CLI, `fatezero_tpu_torch.cli.train.run`, on
+      config/tune/jeep.yaml as shipped but for 8 synthetic 512x640 frames
+      (the random crop runs), 3 synthetic class images (the per-step path),
+      the logdir and 4 updates with validation at step 4 (3 prompts, 50 DDIM
+      steps at strength 0.99) and checkpoints at 2 and 4; the edit CLI on
+      its checkpoint_4 with config/teaser/jeep_posche.yaml at 10 steps (the
+      loaded UNet must equal the tuned one bit for bit); then
+      config/tune/man_skate.yaml (no class data: the chunked run_steps path
+      with the crop on the card), 4 updates, one checkpoint. Each
+      `[train-cli]` line gives seconds per step, the validation's invert,
+      sample, decode and artifact seconds, checkpoint bytes against the fp32
+      parameter bytes, peak memory and K1/K2/K3 launches against the counts
+      from the sites' shapes; frozen parameters stay bit-identical, some
+      trainable ones move, every artifact exists;
+   c3. the streaming store through the edit CLI:
+      config/low_resource_teaser/jeep_watercolor_ddim_10_steps_disk_store.yaml
+      as shipped (random:sd, synthetic 512x512 frames) and
+      config/teaser/jeep_watercolor.yaml with use_inversion_attention false
+      at 10 steps (the save/swap edit). Each `[stream]` line gives the store's
+      bytes a step predicted from the sites' shapes and held (and pickled),
+      the copy seconds, the CLI's phase seconds, peak memory and K1's
+      launches against the count from the sites' shapes; for the disk store
+      also the largest difference between the streaming edit and the fused
+      path's edit on the same trajectory (bf16, informational), then an fp32
+      witness at full width: the streaming edit against the fused stored
+      edit, which must agree within one bf16 unit of the largest value;
    d. the flash-variants probe (fatezero_tpu_torch.scripts.bench_flash_variants),
       the path of K1b: K1, K1b and the library's attention at three edit
       shapes (192 folded rows, d 40, bf16);
@@ -144,6 +180,10 @@ CLI_TINY = os.path.join(REPO, "config", "demo_tiny.yaml")
 CLI_TEASER = os.path.join(REPO, "config", "teaser", "jeep_watercolor.yaml")
 CLI_BLEND = os.path.join(REPO, "config", "teaser", "jeep_posche_local_latent_blend.yaml")
 CLI_VIDEO_TOL = 1e-3
+# the shipped teaser configs run 50 steps; the CLI phase runs them at 20, and
+# the blend config under a 3.2 GB budget (14 of its 20 rows: a hybrid, as the
+# 8 GB default gives 37 of 50)
+CLI_STEPS, CLI_BLEND_BUDGET_GB = 20, 3.2
 
 KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "layer_norm.cu", "flash_fwd_bf16.cu", "flash_fwd_merged.cu")
 # one H100 SXM (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
@@ -880,7 +920,9 @@ def k1_per_forward(unet, latent, kind, materialized=None):
     controlled self site, the value-space cross edit at each controlled cross
     site but those of `materialized` queries); 'inline' (the 3-row
     InlineEditContext under a latent blend: two attentions at each controlled
-    self site, every controlled cross site materialised)."""
+    self site, every controlled cross site materialised); 'stream' (the
+    streaming store's StoreContext and EditContext: every controlled site
+    materialised, so only the sites past the controlled size run K1)."""
     from fatezero_tpu_torch.ops.flash_attention import FLASH_MIN_QUERIES
     from fatezero_tpu_torch.ptp.context import MAX_CONTROLLED_TOKENS
 
@@ -892,6 +934,8 @@ def k1_per_forward(unet, latent, kind, materialized=None):
             if kind == "capture_only" and place == "up" and s > MAX_CONTROLLED_TOKENS:
                 break
             n += 2
+        elif kind == "stream":
+            continue
         elif kind in ("capture", "capture_only"):
             n += 1
         elif kind == "inline":
@@ -1306,24 +1350,6 @@ def full_width_modes(device, kernels, reset_counts, check_plain):
 
 
 # ---------------------------------------------------------------- the edit CLI
-def write_safetensors(path, state):
-    """A .safetensors file of fp32 arrays (8-byte little-endian header length,
-    JSON header, raw bytes), without the safetensors package."""
-    import struct
-
-    header, chunks, off = {}, [], 0
-    for key, value in state.items():
-        raw = np.ascontiguousarray(value, dtype="<f4").tobytes()
-        header[key] = {"dtype": "F32", "shape": list(np.shape(value)), "data_offsets": [off, off + len(raw)]}
-        chunks.append(raw)
-        off += len(raw)
-    head = json.dumps(header).encode()
-    head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(head)) + head)
-        f.writelines(chunks)
-
-
 def write_tokenizer(path, text):
     """A CLIP BPE vocab: the 512 byte symbols, the special tokens, and the
     merges (with their tokens) that join each word of `text` letter by letter
@@ -1365,6 +1391,7 @@ def write_tiny_diffusers(path, model_config, text):
     """random:tiny's 2-D weights as a diffusers-layout checkpoint (the UNet's
     proj_in/proj_out as 1x1 convs, as SD-1.4 ships them), its config.json
     files, a tokenizer for `text` and a scheduler config."""
+    from fatezero_tpu_torch.common.checkpoint import write_safetensors
     from fatezero_tpu_torch.models import loader as L
 
     m = L.load_models("random:tiny", model_config, device="cpu")
@@ -1483,10 +1510,21 @@ def cli_k1_expected(unet, latent, steps, n_prompts, plan, window):
     return invert + n_prompts * edit, per
 
 
-def cli_full_width(name, path, work, frames, kernels, reset_counts, check_plain):
+def apply_overrides(cfg, overrides):
+    """Merge `overrides` into a config dict: a top-level key is set, a dict
+    value updates that block."""
+    for key, value in overrides.items():
+        if isinstance(value, dict):
+            cfg[key].update(value)
+        else:
+            cfg[key] = value
+
+
+def cli_full_width(name, path, work, frames, kernels, reset_counts, check_plain, overrides=None):
     """A shipped config through cli.edit.run at full SD-1.4 width, as shipped
-    but for its frames (8 synthetic 512^2 PNGs) and its logdir: its
-    pretrained_model_path (./ckpt/...) is absent, so the loader warns and
+    but for its frames (8 synthetic 512^2 PNGs), its logdir and `overrides`
+    (top-level keys; a dict value updates that block): where its
+    pretrained_model_path (./ckpt/...) is absent, the loader warns and
     builds random:sd, as the JAX package does. Returns the run's numbers."""
     import torch
 
@@ -1498,45 +1536,19 @@ def cli_full_width(name, path, work, frames, kernels, reset_counts, check_plain)
 
     cfg = load_config(path).to_dict()
     cfg["dataset_config"]["path"] = frames
+    apply_overrides(cfg, overrides or {})
     logdir = os.path.join(work, name)
     cfg["logdir"] = logdir
-    seen = {"edit_s": [], "decode_s": []}
-    Pipe = FPM.FateZeroPipeline
-    plan_capture, invert_fast, edit_fast, decode = Pipe.plan_capture, Pipe.invert_fast, Pipe.edit_fast, Pipe.decode_latents
-
-    def planned(self, latents, steps, window, budget_bytes, **kw):
-        plan = plan_capture(self, latents, steps, window, budget_bytes, **kw)
-        seen.update(plan=plan, window=window, budget=budget_bytes,
-                    predicted=0 if plan is None else self.capture_payload_bytes(latents, plan[1]))
-        return plan
-
-    def inverted(self, *args, **kw):
-        out = invert_fast(self, *args, **kw)
-        if kw.get("capture"):
-            seen["held"] = sum(t.numel() * t.element_size() for t in FPM._payload_leaves(out[1]))
-        return out
-
-    def timed(fn, key):
-        def wrapped(self, *args, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(self, *args, **kw)
-            torch.cuda.synchronize()
-            seen[key].append(time.perf_counter() - t)
-            return out
-        return wrapped
-
-    Pipe.plan_capture, Pipe.invert_fast = planned, inverted
-    Pipe.edit_fast, Pipe.decode_latents = timed(edit_fast, "edit_s"), timed(decode, "decode_s")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    try:
+    with Recorder() as rec:
+        plans = rec.wrap(FPM.FateZeroPipeline, "plan_capture", keep=True)
+        inversions = rec.wrap(FPM.FateZeroPipeline, "invert_fast", keep=True)
+        edits = rec.wrap(FPM.FateZeroPipeline, "edit_fast")
+        decodes = rec.wrap(FPM.FateZeroPipeline, "decode_latents")
         out_dir, videos = cli.run(cfg)
-    finally:
-        Pipe.plan_capture, Pipe.invert_fast, Pipe.edit_fast, Pipe.decode_latents = (
-            plan_capture, invert_fast, edit_fast, decode)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
@@ -1549,6 +1561,15 @@ def cli_full_width(name, path, work, frames, kernels, reset_counts, check_plain)
     n_frames = int(cfg["dataset_config"]["n_sample_frame"])
     meta = UNetPseudo3DConditionModel(UNet3DConfig(**_unet_cfg_overrides(cfg["model_config"])),
                                       dtype=torch.bfloat16, device="meta")
+    seen = {"edit_s": [t for t, _ in edits], "decode_s": [t for t, _ in decodes]}
+    if plans:
+        pipe, (latents, _), kw, plan = plans[0][1]
+        seen.update(plan=plan, window=kw["window"], budget=kw["budget_bytes"],
+                    predicted=0 if plan is None else pipe.capture_payload_bytes(latents, plan[1]))
+    captured = [c[1][3][1] for c in inversions if c[1][2].get("capture")]
+    if captured:
+        seen["held"] = sum(t.numel() * t.element_size() for t in FPM._payload_leaves(captured[0]))
+    del plans, inversions, captured  # the run's models and payload
     k1_expect, per = cli_k1_expected(meta, RES // 8, steps, len(prompts), seen.get("plan"), seen.get("window", 0))
     names = artifact_names(out_dir)
     expect = {"input.gif", "grid.gif", "step_0.gif", "step_0atten.gif", "config.yml", "log.log", "phase_timings.json"}
@@ -1586,7 +1607,10 @@ def cli_full_width(name, path, work, frames, kernels, reset_counts, check_plain)
 
 
 def cli_phase(kernels, reset_counts, check_plain):
-    """The edit CLI at full width: the teaser and the blend config, 50 steps each."""
+    """The edit CLI at full width: the teaser and the blend config at
+    CLI_STEPS steps each (cut from their 50); the blend config under a
+    CLI_BLEND_BUDGET_GB payload budget, so that its capture is a hybrid, as
+    the 8 GB default makes it at 50 steps."""
     import shutil
 
     import torch
@@ -1595,11 +1619,648 @@ def cli_phase(kernels, reset_counts, check_plain):
     shutil.rmtree(work, ignore_errors=True)
     frames = write_frames(os.path.join(work, "frames"), FRAMES, (RES, RES), seed=7)
     results = {}
+    over = {"editing_config": {"num_inference_steps": CLI_STEPS}}
     try:
-        for name, path in (("teaser", CLI_TEASER), ("blend", CLI_BLEND)):
-            results[name], _ = phase(f"cli {name}", lambda: cli_full_width(
-                name, path, work, frames, kernels, reset_counts, check_plain))
+        for name, path, budget in (("teaser", CLI_TEASER, None), ("blend", CLI_BLEND, CLI_BLEND_BUDGET_GB)):
+            if budget is not None:
+                os.environ["FZ_PAYLOAD_BUDGET_GB"] = str(budget)
+            try:
+                results[name], _ = phase(f"cli {name}", lambda: cli_full_width(
+                    name, path, work, frames, kernels, reset_counts, check_plain, overrides=over))
+            finally:
+                os.environ.pop("FZ_PAYLOAD_BUDGET_GB", None)
             torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
+# ---------------------------------------------------------------- tuning CLI
+TUNE_TINY = os.path.join(REPO, "config", "tune_demo_tiny.yaml")
+TUNE_JEEP = os.path.join(REPO, "config", "tune", "jeep.yaml")
+TUNE_MAN = os.path.join(REPO, "config", "tune", "man_skate.yaml")
+EDIT_POSCHE = os.path.join(REPO, "config", "teaser", "jeep_posche.yaml")
+DISK_STORE = os.path.join(REPO, "config", "low_resource_teaser", "jeep_watercolor_ddim_10_steps_disk_store.yaml")
+TUNE_CLI_STEPS = 4  # config/tune/*.yaml train 1,000 steps
+TUNED_EDIT_STEPS = 10  # config/teaser/jeep_posche.yaml runs 50
+# the tiny tuning run's update, card against CPU: two CPU runs that differ only
+# in their thread count read 2.2e-4; an update never applied reads 1, one of
+# the two steps missing about 0.5
+TUNE_UPDATE_TOL = 0.02
+SAVE_SWAP_STEPS = 10  # config/teaser/jeep_watercolor.yaml runs 50
+
+
+class Recorder:
+    """Wraps methods of classes for one run: each call's seconds (synchronised
+    on the card) and, where asked, what `keep(obj, args, kwargs, result)`
+    picks of it (True: all four); restores the methods on exit."""
+
+    def __init__(self, sync=True):
+        self.sync, self.calls, self.saved = sync, {}, []
+
+    def wrap(self, cls, name, keep=None):
+        import torch
+
+        fn = getattr(cls, name)
+        calls = self.calls.setdefault(f"{cls.__name__}.{name}", [])
+
+        def wrapped(obj, *args, **kwargs):
+            if self.sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(obj, *args, **kwargs)
+            if self.sync:
+                torch.cuda.synchronize()
+            call = (obj, args, kwargs, out)
+            calls.append((time.perf_counter() - t0, (call if keep is True else keep(*call)) if keep else None))
+            return out
+
+        self.saved.append((cls, name, fn))
+        setattr(cls, name, wrapped)
+        return calls
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in reversed(self.saved):
+            setattr(cls, name, fn)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def tiny_train_cli_reference():
+    """config/tune_demo_tiny.yaml through cli.train.train on the card and on
+    the CPU, fp32 (mixed_precision "no"), random:tiny, 8 synthetic 80x96
+    frames (the config takes 4 at stride 2, random 64x64 crops on the
+    device), 2 updates, validation and a checkpoint at step 2, 2-step
+    validation sampling; every random is drawn on the host, so both runs
+    draw the same. Held: the losses within 1e-4 relative, the validation
+    videos within CLI_VIDEO_TOL, the same artifact names, and the written
+    checkpoint's tensors: the frozen ones equal; of the trained ones the
+    update (checkpoint minus the start the trainer's init_state saw), the
+    card's against the CPU's: the norm of their difference within
+    TUNE_UPDATE_TOL of the norm of the CPU's update (an update the card never
+    applied reads 1, checked below), 99.9 % of the coordinates within
+    0.05 lr, and every one within two AdamW steps (2 x 2.1 lr: a coordinate
+    whose gradient is at its rounding noise may step the other way)."""
+    import shutil
+
+    import torch
+
+    from fatezero_tpu_torch.cli import train as tcli
+    from fatezero_tpu_torch.common.checkpoint import _flatten, read_safetensors
+    from fatezero_tpu_torch.common.config import load_config
+    from fatezero_tpu_torch.convert.to_flax import unet_state_to_flax
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+    from fatezero_tpu_torch.trainer.ddpm_trainer import DDPMTrainer
+
+    def start_tensors(trainer, args, kwargs, state):  # copies: on the CPU .numpy() shares the masters
+        flat = _flatten(unet_state_to_flax(tcli._host_state(trainer.unet, state["master"])))
+        return {k: v.copy() for k, v in flat.items()}
+
+    work = os.path.join(REPO, "build", "train_smoke_tiny")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = load_config(TUNE_TINY).to_dict()
+    cfg["dataset_config"]["path"] = write_frames(os.path.join(work, "frames"), 8, (80, 96), seed=3)
+    cfg.update(config=TUNE_TINY, mixed_precision="no", train_steps=2, validation_steps=2, checkpointing_steps=2,
+               validation_sample_logger_config={"num_inference_steps": 2})
+    lr = float(cfg["learning_rate"])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with Recorder(sync=False) as rec:
+            chunks = rec.wrap(DDPMTrainer, "run_steps", keep=True)
+            decoded = rec.wrap(FateZeroPipeline, "decode_latents", keep=True)
+            starts = rec.wrap(DDPMTrainer, "init_state", keep=start_tensors)
+            logdir, _ = tcli.train(**cfg, logdir=os.path.join(work, dev), device=dev)
+        losses = torch.cat([c[1][3][1].float().cpu() for c in chunks])
+        videos = [c[1][3] for c in decoded]
+        ck = {comp: read_safetensors(os.path.join(logdir, "checkpoint_2", comp, "flax_model.safetensors"))
+              for comp in ("unet", "vae", "text_encoder")}
+        runs[dev] = (logdir, losses, videos, ck, artifact_names(logdir), starts[0][1])
+    (gdir, gl, gv, gck, gnames, gstart), (cdir, cl, cv, cck, cnames, cstart) = runs["cuda"], runs["cpu"]
+    if gnames != cnames:
+        raise AssertionError(f"tiny tuning CLI artifacts differ card vs CPU: {sorted(set(gnames) ^ set(cnames))[:10]}")
+    loss_err = float(((gl - cl).abs() / cl.abs()).max())
+    vid_err = max(float(np.abs(a - b).max()) for a, b in zip(gv, cv))
+    frozen_diff, trained = [], []
+    for comp in sorted(cck):
+        for key, ref in cck[comp].items():
+            got = gck[comp][key]
+            if comp == "unet" and any(p in key for p in ("attn_temporal", "to_q", "conv_temporal", "lora_temporal")):
+                trained.append(key)
+            elif not np.array_equal(got, ref):
+                frozen_diff.append(f"{comp}/{key}")
+    start_diff = [k for k in cstart if not np.array_equal(gstart[k], cstart[k])]
+
+    def update_errors(card):
+        """(norm ratio, share within 0.05 lr, max |diff| / lr) of the card's
+        update `card - start` against the CPU's."""
+        du_g = np.concatenate([(card[k] - gstart[k]).ravel() for k in trained])
+        du_c = np.concatenate([(cck["unet"][k] - cstart[k]).ravel() for k in trained])
+        diff = np.abs(du_g - du_c)
+        return (float(np.linalg.norm(diff) / np.linalg.norm(du_c)), float((diff <= 0.05 * lr).mean()),
+                float(diff.max() / lr))
+
+    def update_ok(errs):
+        return errs[0] <= TUNE_UPDATE_TOL and errs[1] >= 0.999 and errs[2] <= 4.2
+
+    upd = update_errors(gck["unet"]) if trained else (np.inf, 0.0, np.inf)
+    null = update_errors(gstart) if trained else (np.inf, 0.0, np.inf)  # the card never updating
+    log(f"[train-cli tiny] {len(cnames)} artifacts, names equal; losses card {gl.tolist()} cpu {cl.tolist()} "
+        f"max rel err {loss_err:.3e} (tol 1e-4); validation videos {len(gv)} max_abs_err {vid_err:.3e} "
+        f"(tol {CLI_VIDEO_TOL}); checkpoint_2: {len(trained)} trained tensors, update card vs cpu: "
+        f"|diff|/|cpu update| {upd[0]:.3e} (tol {TUNE_UPDATE_TOL}), share within 0.05 lr {upd[1]:.6f} (tol 0.999), "
+        f"max |diff| {upd[2]:.3f} lr (tol 4.2); an unapplied update reads {null[0]:.3e} / {null[1]:.6f} / "
+        f"{null[2]:.3f} and fails; frozen tensors differing {len(frozen_diff)}, start tensors differing "
+        f"{len(start_diff)}")
+    if not (len(gv) == len(cv) >= 1 and len(gl) == len(cl) == 2 and trained):
+        raise AssertionError(f"tiny tuning CLI: {len(gv)} / {len(cv)} videos, {len(gl)} / {len(cl)} losses")
+    if update_ok(null):
+        raise AssertionError(f"the update check passes a card run that never updated: {null}")
+    if not (loss_err <= 1e-4 and vid_err <= CLI_VIDEO_TOL and update_ok(upd) and not frozen_diff
+            and not start_diff):
+        raise AssertionError(f"the tiny tuning CLI run on the card disagrees with the CPU's: update {upd}, "
+                             f"frozen {frozen_diff[:3]}, start {start_diff[:3]}")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def tiny_streaming_reference():
+    """The streaming store at a small size, card against CPU, fp32: the tiny
+    UNet with the blend config's model_config and sharp_cross_state's
+    weights, 2 frames of 16x16 seeded latents, seeded text embeddings, 3
+    steps. invert(store=...) card against CPU (trajectory within 1e-3 x
+    max|x|, every stored map within MODES_PAYLOAD_TOL); then each edit on the
+    card from the CPU's store and trajectory against the CPU's: sample with
+    the teaser's refine + reweight controller, with the blend config's
+    replace controller and both blends, with both blends at strength 0.5,
+    and the save/swap edit (the 'save' loop, then the swap against the CPU's
+    save store). Held: latents within 1e-3 x max|x|, every normalised blend
+    map within MODES_MAP_TOL with the CPU's threshold band empty, the
+    recorded masks equal."""
+    import torch
+
+    from fatezero_tpu_torch.models.loader import load_models, load_state
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+    from fatezero_tpu_torch.ptp.controller import make_controller
+    from fatezero_tpu_torch.ptp.store import AttentionStore
+
+    steps = 3
+    rng = np.random.default_rng(13)
+    lat = rng.standard_normal((1, 2, 16, 16, 4)).astype(np.float32)
+    emb = [rng.standard_normal((2, 77, 32)).astype(np.float32) for _ in range(2)]
+    teaser = dict(is_replace_controller=False, cross_replace_steps=0.8, self_replace_steps=0.8,
+                  eq_params={"words": ["watercolor"], "values": [10]})
+    modes = [  # name, prompts, controller keywords, strength
+        ("refine + reweight", (SOURCE, TARGET), teaser, 1.0),
+        ("replace, both blends", (POSCHE_SOURCE, POSCHE_TARGET), POSCHE_P2P, 1.0),
+        ("both blends, strength 0.5", (POSCHE_SOURCE, POSCHE_TARGET), POSCHE_P2P, 0.5),
+        ("save/swap", (POSCHE_SOURCE, POSCHE_TARGET), {**POSCHE_P2P, "use_inversion_attention": False}, 1.0),
+    ]
+    out, ref, state, faults = {}, {}, None, []
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        m = load_models("random:tiny", POSCHE_MODEL, torch.float32, device=dev)
+        state = state or sharp_cross_state(m.unet, seed=7)
+        load_state(m.unet, state, dev)
+        pipe = FateZeroPipeline(m.unet, None, None, m.tokenizer, m.schedule, store_dtype=torch.float32, device=dev)
+        x, es, et = (torch.from_numpy(a).to(dev) for a in (lat, *emb))
+        store = AttentionStore()
+        traj = pipe.invert(x, es, steps, store=store)
+        if dev.type == "cpu":
+            ref.update(store=store, traj=traj)
+        else:
+            t_err = max(float((a - b).abs().max()) for a, b in zip(traj, ref["traj"]))
+            t_tol = 1e-3 * max(1.0, max(float(b.abs().max()) for b in ref["traj"]))
+            m_err = max(float((a - b).abs().max()) for i in range(steps) for k, v in store.step_maps(i).items()
+                        for a, b in zip(v, ref["store"].step_maps(i)[k]))
+            log(f"[stream reference] tiny invert(store=...) card vs CPU: trajectory max_abs_err {t_err:.3e} "
+                f"(tol {t_tol:.3e}), stored maps max_abs_err {m_err:.3e} (tol {MODES_PAYLOAD_TOL}), "
+                f"{store.step_bytes[0]} bytes a step")
+            if not (t_err <= t_tol and m_err <= MODES_PAYLOAD_TOL):
+                faults.append(f"invert: trajectory {t_err:.3e}, maps {m_err:.3e}")
+        # every edit reads the CPU's store and trajectory
+        store, traj = ref["store"], ref["traj"]
+        res = out[dev.type] = {}
+        for name, prompts, kw, strength in modes:
+            ctl = make_controller(m.tokenizer, list(prompts), steps, **kw)
+            n_used = steps if strength == 1.0 else int(steps * strength)
+            init = traj[n_used]
+            if name == "save/swap":
+                save = AttentionStore()
+                first = pipe.sample(init, es, steps, edit_store=save)
+                res["save"] = (first.float().cpu(), [], None)
+                if dev.type == "cpu":
+                    ref["save"] = save
+                save = ref["save"]
+                fn = lambda: pipe.sample(init, et, steps, controller=ctl, inv_store=save,  # noqa: E731
+                                         inverted_latents=[init] + list(save.latents_store))
+            else:
+                fn = lambda: pipe.sample(init, et, steps, controller=ctl, inv_store=store,  # noqa: E731
+                                         inverted_latents=traj, strength=strength)
+            latent, calls = recorded_blends(fn)
+            masks = [np.stack(b.mask_list) for b in (ctl.attention_blend, ctl.latent_blend) if b is not None]
+            res[name] = (latent.float().cpu(), calls, masks)
+        del m, pipe
+    for name in ["save"] + [mode[0] for mode in modes]:
+        (a, calls_a, masks_a), (b, calls_b, masks_b) = out["cuda"][name], out["cpu"][name]
+        err = float((a - b).abs().max())
+        tol = 1e-3 * max(1.0, float(b.abs().max()))
+        map_err = max((float((na - nb).abs().max()) for (na, _), (nb, _) in zip(calls_a, calls_b)), default=0.0)
+        in_band = sum(int(((nb - th).abs() <= MODES_MAP_TOL).sum()) for nb, th in calls_b)
+        same = masks_b is None or all(np.array_equal(x, y) for x, y in zip(masks_a, masks_b))
+        mean = [round(float(mk.mean()), 4) for mk in masks_b or []]
+        log(f"[stream reference] tiny {name}: latent max_abs_err {err:.3e} (tol {tol:.3e}); {len(calls_b)} blend "
+            f"maps max_abs_err {map_err:.3e} (tol {MODES_MAP_TOL}), {in_band} CPU pixels within it of their "
+            f"threshold; masks equal {same}, mask means {mean}")
+        if not (torch.isfinite(a).all() and err <= tol and map_err <= MODES_MAP_TOL and in_band == 0 and same
+                and len(calls_a) == len(calls_b)):
+            faults.append(f"{name}: latent {err:.3e} (tol {tol:.3e}), maps {map_err:.3e}, band {in_band}, "
+                          f"masks equal {same}")
+    if faults:
+        raise AssertionError("tiny streaming edit, card vs CPU: " + "; ".join(faults))
+    torch.cuda.empty_cache()
+
+
+def flax_file_bytes(module):
+    """Predicted size of a component's flax_model.safetensors written in fp32:
+    4 bytes a parameter (the JSON header comes on top)."""
+    return 4 * sum(p.numel() for p in module.state_dict().values())
+
+
+def train_cli_full_width(name, path, work, frames, class_dir, overrides, kernels, reset_counts, check_plain):
+    """A shipped tuning config through cli.train.run at full SD-1.4 width, as
+    shipped but for `overrides`, its frames and class images (synthetic) and
+    its logdir; ./ckpt/... is absent, so the loader builds random:sd. Prints
+    the `[train-cli]` line; returns (its numbers, the tuned UNet's tensors on
+    the host, the logdir)."""
+    import torch
+
+    from fatezero_tpu_torch.cli import train as tcli
+    from fatezero_tpu_torch.common.config import load_config
+    from fatezero_tpu_torch.models.loader import load_models
+    from fatezero_tpu_torch.ops.flash_attention import FLASH_MIN_QUERIES
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+    from fatezero_tpu_torch.trainer.ddpm_trainer import DDPMTrainer
+
+    cfg = load_config(path).to_dict()
+    cfg["dataset_config"]["path"] = frames
+    if class_dir is not None:
+        cfg["dataset_config"]["class_data_root"] = class_dir
+    apply_overrides(cfg, overrides)
+    cfg.update(config=path, logdir=os.path.join(work, name))
+    seen = {}
+    init_state = DDPMTrainer.init_state
+
+    def snapshot(trainer):
+        st = init_state(trainer)
+        seen["trainer"] = trainer
+        seen["frozen"] = {n: p.detach().clone() for n, p in trainer.unet.named_parameters()
+                          if n not in trainer.trainable}
+        seen["start"] = {n: p.detach().clone() for n, p in trainer.trainable.items()}
+        return st
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        steps_s = rec.wrap(DDPMTrainer, "step")
+        chunks_s = rec.wrap(DDPMTrainer, "run_steps", keep=True)
+        samples_s = rec.wrap(FateZeroPipeline, "sample")
+        decodes_s = rec.wrap(FateZeroPipeline, "decode_latents")
+        DDPMTrainer.init_state = snapshot
+        try:
+            logdir, state = tcli.run(cfg)
+        finally:
+            DDPMTrainer.init_state = init_state
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    check_plain(f"train-cli {name}")
+    trainer = seen.pop("trainer")
+    unet = trainer.unet
+    with open(os.path.join(logdir, "phase_timings.json")) as f:
+        timings = {k: v["seconds"] for k, v in json.load(f).items()}
+    train_steps = int(cfg["train_steps"])
+    vsteps, csteps = int(cfg.get("validation_steps") or 0), int(cfg.get("checkpointing_steps") or 0)
+    n_val = train_steps // vsteps if vsteps else 0
+    editing = cfg.get("editing_config") or {}
+    prompts = list(editing.get("editing_prompts", [cfg["dataset_config"].get("prompt", "")]))
+    seeds = list(editing.get("sample_seeds", [0]))
+    vsteps_ddim = int(editing.get("num_inference_steps", 10))
+    strength = float(editing.get("strength", 1.0) or 1.0)
+    n_used = min(vsteps_ddim, int(vsteps_ddim * strength)) if strength < 1.0 else vsteps_ddim
+    lat = RES // 8
+    sites = count_sites(unet, FLASH_MIN_QUERIES, lat)
+    plain = k1_per_forward(unet, lat, "plain")
+    expect = dict(
+        flash_forward=2 * sites * train_steps + n_val * plain * (vsteps_ddim + len(prompts) * len(seeds) * n_used),
+        flash_dq=sites * train_steps, flash_dkv=sites * train_steps,
+    )
+    frozen_moved = [n for n, p in unet.named_parameters() if n in seen["frozen"]
+                    and not torch.equal(p.detach(), seen["frozen"][n])]
+    moved = [n for n, p in trainer.trainable.items() if not torch.equal(p.detach(), seen["start"][n])]
+    ckpts = sorted(d for d in os.listdir(logdir) if d.startswith("checkpoint_"))
+    ck_bytes = {d: dir_bytes(os.path.join(logdir, d)) for d in ckpts}
+    meta = load_models("random:sd", cfg.get("model_config"), device="meta")
+    ck_predicted = sum(flax_file_bytes(mod) for mod in (meta.unet, meta.vae, meta.text_encoder))
+    names = set(artifact_names(logdir))
+    want = {"log.log", "config.yml", "phase_timings.json"}
+    for c in range(csteps, train_steps + 1, csteps) if csteps else ():
+        want |= {f"checkpoint_{c}/{comp}/{f}" for comp in ("unet", "vae", "text_encoder")
+                 for f in ("config.json", "flax_model.safetensors")}
+        want |= {f"checkpoint_{c}/training_state.pt", f"checkpoint_{c}/scheduler/scheduler_config.json"}
+    for v in range(vsteps, train_steps + 1, vsteps) if vsteps else ():
+        want |= {f"validation_{v}/step_{v}.gif"} | {f"validation_{v}/step_{v}_{i}_{s}.gif"
+                                                     for i in range(len(prompts)) for s in seeds}
+    missing = sorted(want - names)
+    val_s = [t for t, _ in samples_s]
+    result = dict(
+        config=os.path.relpath(path, REPO), overrides=overrides, wall_s=wall, phase_seconds=timings,
+        step_s=[t for t, _ in steps_s], chunks=[(int(call[1][4]), t) for t, call in chunks_s],
+        validation_sample_s=val_s, validation_decode_s=[t for t, _ in decodes_s],
+        validation_artifact_s=timings.get("validation", 0.0) - timings.get("validation_invert", 0.0)
+        - sum(val_s) - sum(t for t, _ in decodes_s),
+        checkpoint_bytes=ck_bytes, checkpoint_flax_predicted=ck_predicted, peak_gib=peak / 2**30,
+        launches=launches, expected=expect, sites=sites, k1_plain_per_forward=plain,
+        trainable_moved=f"{len(moved)} of {len(seen['start'])}", frozen_moved=len(frozen_moved),
+        final_loss=load_config(os.path.join(logdir, "config.yml")).to_dict()["final_loss"],
+    )
+    log(f"[train-cli] {name}: {json.dumps(result)}")
+    if missing:
+        raise AssertionError(f"train-cli {name}: missing artifacts {missing[:10]}")
+    for kname, n in expect.items():
+        if launches[kname] != n:
+            raise AssertionError(f"train-cli {name}: {kname} launched {launches[kname]} times, the shapes give {n}")
+    if frozen_moved or not moved or not np.isfinite(result["final_loss"]) or state["step"] != train_steps:
+        raise AssertionError(f"train-cli {name}: frozen moved {frozen_moved[:3]}, {len(moved)} trainable moved, "
+                             f"final loss {result['final_loss']}, step {state['step']}")
+    tuned = {n: p.detach().cpu() for n, p in unet.state_dict().items()}
+    del seen, trainer, unet, state
+    return result, tuned, logdir
+
+
+def tuned_edit(work, frames, ckpt, tuned, kernels, reset_counts, check_plain):
+    """config/teaser/jeep_posche.yaml through cli.edit.run on the tuned jeep
+    checkpoint: the UNet it loads must equal the tuned one bit for bit."""
+    import torch
+
+    from fatezero_tpu_torch.cli import edit as ecli
+
+    loaded, load_models = {}, ecli.load_models
+
+    def capture(*args, **kwargs):
+        bundle = load_models(*args, **kwargs)
+        loaded["unet"] = bundle.unet
+        return bundle
+
+    ecli.load_models = capture
+    try:
+        result = cli_full_width("tuned_jeep_posche", EDIT_POSCHE, work, frames, kernels, reset_counts, check_plain,
+                                overrides={"pretrained_model_path": ckpt,
+                                           "editing_config": {"num_inference_steps": TUNED_EDIT_STEPS}})
+    finally:
+        ecli.load_models = load_models
+    state = loaded.pop("unet").state_dict()
+    differ = [k for k, v in tuned.items() if not torch.equal(state[k].cpu(), v)]
+    log(f"[train-cli] tuned jeep_posche: the loaded UNet's {len(state)} tensors against the tuned ones: "
+        f"{len(differ)} differ; keys equal {set(state) == set(tuned)}")
+    if differ or set(state) != set(tuned):
+        raise AssertionError(f"the edit CLI did not load the tuned UNet: {differ[:5]}")
+    return result
+
+
+def train_cli_phase(kernels, reset_counts, check_plain):
+    """The tuning CLI at full width: config/tune/jeep.yaml (the per-step path
+    with class images, validation and two checkpoints), the edit CLI on its
+    checkpoint, then config/tune/man_skate.yaml (the chunked path)."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(REPO, "build", "train_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    results = {}
+    try:
+        # 512x640 frames: the short side scales to 512 and the random crop runs
+        frames = write_frames(os.path.join(work, "frames"), FRAMES, (RES, 640), seed=11)
+        edit_frames = write_frames(os.path.join(work, "edit_frames"), FRAMES, (RES, RES), seed=7)
+        class_dir = write_frames(os.path.join(work, "class"), 3, (RES, RES), seed=12)
+        jeep = dict(train_steps=TUNE_CLI_STEPS, validation_steps=TUNE_CLI_STEPS, checkpointing_steps=2)
+        (results["jeep"], tuned, logdir), _ = phase("train-cli jeep", lambda: train_cli_full_width(
+            "jeep", TUNE_JEEP, work, frames, class_dir, jeep, kernels, reset_counts, check_plain))
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(logdir, f"checkpoint_{TUNE_CLI_STEPS}")
+        shutil.rmtree(os.path.join(logdir, "checkpoint_2"), ignore_errors=True)  # disk: only the last is edited
+        results["tuned_edit"], _ = phase("cli tuned jeep_posche", lambda: tuned_edit(
+            work, edit_frames, ckpt, tuned, kernels, reset_counts, check_plain))
+        del tuned
+        shutil.rmtree(logdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        man = dict(train_steps=TUNE_CLI_STEPS, validation_steps=0, checkpointing_steps=TUNE_CLI_STEPS)
+        (results["man_skate"], _, logdir), _ = phase("train-cli man_skate", lambda: train_cli_full_width(
+            "man_skate", TUNE_MAN, work, frames, None, man, kernels, reset_counts, check_plain))
+        # run_steps calls step once an update, so both paths time every step
+        if [c[0] for c in results["man_skate"]["chunks"]] != [TUNE_CLI_STEPS]:
+            raise AssertionError(f"man_skate did not take the chunked path: {results['man_skate']['chunks']}")
+        if results["jeep"]["chunks"] or len(results["jeep"]["step_s"]) != TUNE_CLI_STEPS:
+            raise AssertionError("jeep (class images) did not take the per-step path")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
+# ---------------------------------------------------------- streaming store
+def stream_bytes_per_step(unet, latents_shape, dtype):
+    """Bytes of one step of the streaming store, from the sites' shapes: a
+    forward of a storage-free copy of the UNet (meta device) with the
+    inversion's StoreContext records every stored map's shape."""
+    import torch
+
+    from fatezero_tpu_torch.models.unet3d import UNetPseudo3DConditionModel
+    from fatezero_tpu_torch.ptp.context import StoreContext
+
+    meta = UNetPseudo3DConditionModel(unet.cfg, dtype=unet.dtype, device="meta")
+    ctx = StoreContext(save_self_attention=True, store_dtype=dtype)
+    lat = torch.empty(tuple(latents_shape), dtype=torch.float32, device="meta")
+    cond = torch.empty((1, 77, unet.cfg.cross_attention_dim), dtype=torch.float32, device="meta")
+    with torch.inference_mode():
+        meta(lat, 0, cond, attn_ctx=ctx)
+    return sum(m.numel() * m.element_size() for v in ctx.captured.values() for m in v)
+
+
+def stream_full_width(name, path, work, frames, overrides, kernels, reset_counts, check_plain):
+    """A shipped config on the streaming store through cli.edit.run at full
+    width (random:sd, bf16, synthetic 512^2 frames). Prints the `[stream]`
+    line: bytes a step predicted and held (and on disk), the copy seconds,
+    inversion and editing seconds, peak memory, K1's launches against the
+    sites' shapes; for an inversion store also the streaming edit against
+    the fused path's replay edit on the same trajectory (bf16, informational)."""
+    import torch
+
+    from fatezero_tpu_torch.cli import edit as ecli
+    from fatezero_tpu_torch.common.config import load_config
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+    from fatezero_tpu_torch.pipelines.p2p_validation_loop import P2pSampleLogger
+    from fatezero_tpu_torch.ptp.store import AttentionStore
+
+    cfg = load_config(path).to_dict()
+    cfg["dataset_config"]["path"] = frames
+    apply_overrides(cfg, overrides)
+    cfg["logdir"] = os.path.join(work, name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        appends = rec.wrap(AttentionStore, "append_step", keep=lambda store, *_: store)  # not the maps
+        inverts = rec.wrap(FateZeroPipeline, "invert", keep=True)
+        samples = rec.wrap(FateZeroPipeline, "sample", keep=True)
+        plans = rec.wrap(FateZeroPipeline, "plan_capture", keep=True)
+        logdir, videos = ecli.run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    check_plain(f"stream {name}")
+    with open(os.path.join(logdir, "phase_timings.json")) as f:
+        timings = {k: v["seconds"] for k, v in json.load(f).items()}
+    editing = cfg["editing_config"]
+    steps = int(editing["num_inference_steps"])
+    prompts = list(editing["editing_prompts"])
+    pipe = (inverts or samples)[0][1][0]
+    latents_shape = (1, FRAMES, RES // 8, RES // 8, 4)
+    per_step = stream_bytes_per_step(pipe.unet, latents_shape, pipe.store_dtype)
+    stores = {}
+    for _, store in appends:
+        stores.setdefault(id(store), store)
+    held = [s.step_bytes for s in stores.values()]
+    copy_s = [s.copy_seconds for s in stores.values()]
+    pickles = [os.path.join(logdir, f) for f in os.listdir(logdir) if f.endswith(".pkl")]
+    stream = k1_per_forward(pipe.unet, RES // 8, "stream")
+    if inverts:  # the streaming inversion, then one streaming edit per prompt
+        k1_expect = steps * stream * (1 + len(prompts))
+    else:  # invert_fast without a capture, then the save loop and the swap edits
+        if plans:
+            raise AssertionError(f"stream {name}: the save/swap edit planned a capture it never reads")
+        k1_expect = steps * k1_per_forward(pipe.unet, RES // 8, "plain") + len(prompts) * steps * stream
+    names = set(artifact_names(logdir))
+    want = {"input.gif", "grid.gif", "step_0.gif", "config.yml", "log.log", "phase_timings.json"}
+    want |= {f"step_0_{i}_0.gif" for i in range(len(prompts))}
+    if cfg.get("disk_store"):
+        want |= {f"{i:03d}.pkl" for i in range(steps)} | {"cross_attention/attn.gif"}
+    missing = sorted(want - names)
+    finite = all(np.isfinite(v).all() and v.shape == (FRAMES, RES, RES, 3) for v in videos)
+    result = dict(
+        config=os.path.relpath(path, REPO), overrides=overrides, wall_s=wall, phase_seconds=timings,
+        bytes_per_step_predicted=per_step, bytes_per_step_held=held, pickle_bytes=sum(map(os.path.getsize, pickles)),
+        copy_s_per_step=copy_s, peak_gib=peak / 2**30, k1=launches["flash_forward"], k1_expected=k1_expect,
+        k1_stream_per_forward=stream, launches=launches, artifacts=len(names), videos_finite=finite,
+    )
+    if inverts:
+        # the fused path's replay edit on the streaming inversion's trajectory
+        obj, args, kwargs, traj_host = inverts[0][1]
+        latents, emb_src = args[0], args[1]
+        logger = P2pSampleLogger(editing_prompts=prompts, logdir=os.path.join(work, "replay"),
+                                 source_prompt=editing.get("source_prompt", ""), num_inference_steps=steps,
+                                 p2p_config=editing.get("p2p_config", {}))
+        edited = [c[1][3] for c in samples if c[1][2].get("controller") is not None]
+        traj = torch.stack([t.to(obj.device) for t in traj_host])
+        diffs = []
+        for idx, prompt in enumerate(prompts):
+            ctl = logger._controller_for(obj, idx, prompt)
+            fused, _ = obj.edit_fast(traj, emb_src, obj.encode_prompt(prompt), ctl, steps)
+            diffs.append(float((fused.float() - edited[idx].float()).abs().max()))
+        result.update(stream_vs_replay_max_abs=diffs, latent_max_abs=float(edited[0].abs().max()))
+        del traj, latents
+        check_plain(f"stream {name} replay")  # that edit is no main path
+    log(f"[stream] {name}: {json.dumps(result)}")
+    if missing or not finite or len(videos) != len(prompts):
+        raise AssertionError(f"stream {name}: missing {missing[:10]}, finite {finite}, {len(videos)} videos")
+    if launches["flash_forward"] != k1_expect:
+        raise AssertionError(f"stream {name}: K1 launched {launches['flash_forward']} times, the shapes give {k1_expect}")
+    if any(b != per_step for steps_held in held for b in steps_held):
+        raise AssertionError(f"stream {name}: {per_step} bytes a step predicted, held {held}")
+    return result
+
+
+def stream_fp32_witness():
+    """The streaming edit against the fused stored edit, the disk-store
+    config's model and controller at full width in fp32 (store dtype fp32),
+    10 steps from seeded latents: invert(store=...) then sample against
+    invert_fast(capture=True) then edit_fast(stored=...). In bf16 the two
+    part (the streaming path materialises every controlled site's bf16
+    probabilities, the fused one keeps fp32 probabilities inside K1); in
+    fp32 both keep fp32 probabilities, so the edits must agree within one
+    bf16 unit of the largest value, as the edit modes' fp32 witness holds
+    replay to stored.
+    Untimed; no main path."""
+    import torch
+
+    from fatezero_tpu_torch.models.loader import load_models
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+    from fatezero_tpu_torch.ptp.controller import make_controller
+    from fatezero_tpu_torch.ptp.store import AttentionStore
+
+    device = torch.device("cuda")
+    m = load_models("random:sd", TEASER, dtype=torch.float32, seed=0, device=device)
+    pipe = FateZeroPipeline(m.unet, None, m.text_encoder, m.tokenizer, m.schedule, store_dtype=torch.float32,
+                            device=device)
+    ctl = make_controller(m.tokenizer, [SOURCE, TARGET], STEPS, is_replace_controller=False,
+                          cross_replace_steps=0.8, self_replace_steps=0.8,
+                          eq_params={"words": ["watercolor"], "values": [10]})
+    gen = torch.Generator().manual_seed(5)
+    latents = torch.randn(1, FRAMES, RES // 8, RES // 8, 4, generator=gen).to(device)
+    emb_src, emb_tgt = pipe.encode_prompt(SOURCE), pipe.encode_prompt(TARGET)
+    t0 = time.perf_counter()
+    store = AttentionStore()
+    traj_host = pipe.invert(latents, emb_src, STEPS, store=store)
+    streamed = pipe.sample(traj_host[-1], emb_tgt, STEPS, controller=ctl, inv_store=store,
+                           inverted_latents=traj_host)
+    del store
+    traj, stored = pipe.invert_fast(latents, emb_src, STEPS, capture=True)
+    fused, _ = pipe.edit_fast(traj, emb_src, emb_tgt, ctl, STEPS, stored=stored)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    drift = ((traj_host[-1].to(device) - traj[-1]).norm() / traj[-1].norm()).item()
+    err = (streamed.float() - fused.float()).abs().max().item()
+    tol = 2**-7 * fused.abs().max().item()
+    finite = bool(torch.isfinite(streamed).all() and torch.isfinite(fused).all())
+    log(f"[stream] fp32 witness: streaming vs fused inversion rel_l2 at the noisiest latent {drift:.3e}; streaming "
+        f"edit vs fused stored edit max_abs_err {err:.3e} of max {fused.abs().max().item():.3e} (tol {tol:.3e}), "
+        f"finite {finite}; {seconds:.1f} s")
+    if not (err <= tol and finite):
+        raise AssertionError(f"fp32: the streaming edit disagrees with the fused stored edit ({err:.3e} > {tol:.3e})")
+    del m, pipe, traj, stored, fused, streamed, traj_host
+    torch.cuda.empty_cache()
+
+
+def stream_phase(kernels, reset_counts, check_plain):
+    """The streaming store at full width: the disk-store config as shipped,
+    then config/teaser/jeep_watercolor.yaml's save/swap edit."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(REPO, "build", "stream_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    results = {}
+    try:
+        frames = write_frames(os.path.join(work, "frames"), FRAMES, (RES, RES), seed=7)
+        results["disk_store"], _ = phase("stream disk_store", lambda: stream_full_width(
+            "disk_store", DISK_STORE, work, frames, {}, kernels, reset_counts, check_plain))
+        shutil.rmtree(os.path.join(work, "disk_store"), ignore_errors=True)
+        torch.cuda.empty_cache()
+        phase("stream fp32 witness", stream_fp32_witness)
+        over = {"editing_config": {"use_inversion_attention": False, "num_inference_steps": SAVE_SWAP_STEPS}}
+        results["save_swap"], _ = phase("stream save/swap", lambda: stream_full_width(
+            "save_swap", CLI_TEASER, work, frames, over, kernels, reset_counts, check_plain))
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return results
@@ -1634,6 +2295,24 @@ def main() -> int:
     def reset_counts():
         for fn in kernels:
             fn.launches = 0
+
+    # Random weights are set-up, not a path: the paths below build random:sd
+    # a dozen times, each time ~15 s of numpy draws on the host. The draws
+    # depend only on the parameters' names and shapes and the seed, and
+    # load_state copies them, so one host copy per (model, seed) serves every
+    # load; the CLIs' load_models seconds then hold no draws.
+    from fatezero_tpu_torch.models import loader as L
+
+    draws, random_state = {}, L.random_state
+
+    def cached_random_state(module, seed, names=None):
+        key = (tuple((k, tuple(v.shape)) for k, v in sorted(module.state_dict().items())), seed,
+               None if names is None else tuple(sorted(names)))
+        if key not in draws:
+            draws[key] = random_state(module, seed, names)
+        return draws[key]
+
+    L.random_state = cached_random_state
 
     _, t_build = phase("build K1-K4, K1b, K1c", lambda: csrc.build_all(KERNEL_SOURCES))
     k1, k2, k3, k4, k1b, k1c = Totals(), Totals(), Totals(), Totals(), Totals(), Totals()
@@ -1670,6 +2349,8 @@ def main() -> int:
     phase("reference (tiny tuning update, card vs CPU)", tiny_tuning_reference)
     phase("reference (tiny edit modes, card vs CPU)", tiny_modes_reference)
     phase("reference (tiny CLI run, card vs CPU)", tiny_cli_reference)
+    phase("reference (tiny tuning CLI, card vs CPU)", tiny_train_cli_reference)
+    phase("reference (tiny streaming edit, card vs CPU)", tiny_streaming_reference)
 
     # every plain attention call on the card, and every plain call of a
     # kernel's version on the card, is recorded: the main paths must make none
@@ -1843,6 +2524,11 @@ def main() -> int:
         raise AssertionError("tuning moved a frozen param or no trainable one")
     del m, trainer, state, frozen, start
     torch.cuda.empty_cache()
+
+    # ---- main paths c2 and c3: the tuning CLI, with the edit CLI on its
+    # checkpoint; the streaming store through the edit CLI
+    train_cli_phase(kernels, reset_counts, check_plain)
+    stream_phase(kernels, reset_counts, check_plain)
 
     # ---- main path d: the flash-variants probe, K1b's path. Its own check
     # runs K1b's plain version, flash_bf16_reference, which is not watched.

@@ -9,13 +9,19 @@ and flow, and the same result layout in a timestamped logdir: log.log,
 input.gif, the per-prompt gif + mp4 + frame folder with its attention gif,
 the blend masks' PNGs, the grids, phase_timings.json and config.yml.
 
-The edit runs on the fused path: `invert_fast` with the attention payload
-captured (all rows, or the rows a payload budget allows: FZ_PAYLOAD_BUDGET_GB,
-8 by default), then `edit_fast` per prompt. It runs on the card unless the
-caller of `test` passes device="cpu". Not ported yet, and raising with the
-ROADMAP.md queue item that brings them: the streaming store (`disk_store`,
-`save_attention_maps`, generation mode, `use_inversion_attention: false`;
-item 3) and multiple devices (`sharding`, `--mesh`; item 7).
+The edit runs on the fused path by default: `invert_fast` with the attention
+payload captured (all rows, or the rows a payload budget allows:
+FZ_PAYLOAD_BUDGET_GB, 8 by default), then `edit_fast` per prompt. With
+`disk_store` or `save_attention_maps` it runs on the streaming store
+instead: `invert` copies every step's maps to a host AttentionStore (pickled
+into the logdir with `disk_store`), its average cross attention is drawn to
+cross_attention/attn.gif, and each prompt's edit reads the store step by
+step (`sample`). `use_inversion_attention: false` runs the save/swap edit
+(the first prompt captures its own attention, the others edit against it),
+and generation mode (`use_invertion_latents: false`) does so from seeded
+noise, once per sample seed. It runs on the card unless the caller of `test`
+passes device="cpu". Multiple devices (`sharding`, `--mesh`) are not ported
+and raise, naming ROADMAP.md queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -34,7 +40,9 @@ from fatezero_tpu_torch.common.profiling import PhaseTimer, trace
 from fatezero_tpu_torch.data.dataset import ImageSequenceDataset
 from fatezero_tpu_torch.models.loader import load_models
 from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
-from fatezero_tpu_torch.pipelines.p2p_validation_loop import STREAMING_STORE, P2pSampleLogger
+from fatezero_tpu_torch.pipelines.p2p_validation_loop import P2pSampleLogger
+from fatezero_tpu_torch.pipelines.validation_loop import generation_noise
+from fatezero_tpu_torch.ptp.store import AttentionStore
 
 MULTI_DEVICE = "multiple devices are not ported yet (ROADMAP.md queue 1 item 7)"
 
@@ -80,14 +88,6 @@ def test(
         )
     if sharding:
         raise NotImplementedError(f"sharding: {MULTI_DEVICE}")
-    for key, on in (
-        ("disk_store", disk_store),
-        ("save_attention_maps", editing_config.get("save_attention_maps", False)),
-        ("use_invertion_latents: false (generation mode)", not editing_config.get("use_invertion_latents", True)),
-        ("use_inversion_attention: false", not editing_config.get("use_inversion_attention", True)),
-    ):
-        if on:
-            raise NotImplementedError(f"{key}: {STREAMING_STORE}")
     logdir = _logdir_for(config, logdir)
     os.makedirs(logdir, exist_ok=True)
     # every run logs to logdir/log.log
@@ -137,25 +137,96 @@ def test(
         latents = pipe.encode_video(torch.from_numpy(np.ascontiguousarray(video)).to(device))
 
     sample_seeds = [int(s) for s in editing_config.get("sample_seeds", [seed])]
-    logger = P2pSampleLogger(
-        editing_prompts=editing_config.get("editing_prompts", [source_prompt]),
-        logdir=logdir,
-        source_prompt=source_prompt,
-        num_inference_steps=num_steps,
-        guidance_scale=float(editing_config.get("guidance_scale", 7.5)),
-        sample_seeds=sample_seeds,
-        p2p_config=editing_config.get("p2p_config", {}),
-        use_inversion_attention=bool(editing_config.get("use_inversion_attention", True)),
-        strength=editing_config.get("strength"),
-        annotate=bool(editing_config.get("annotate", False)),
-    )
+    use_fused = not disk_store and not editing_config.get("save_attention_maps", False)
+
+    def make_logger(subdir: str = "") -> P2pSampleLogger:
+        return P2pSampleLogger(
+            editing_prompts=editing_config.get("editing_prompts", [source_prompt]),
+            logdir=os.path.join(logdir, subdir) if subdir else logdir,
+            source_prompt=source_prompt,
+            num_inference_steps=num_steps,
+            guidance_scale=float(editing_config.get("guidance_scale", 7.5)),
+            sample_seeds=sample_seeds,
+            p2p_config=editing_config.get("p2p_config", {}),
+            use_inversion_attention=bool(editing_config.get("use_inversion_attention", True)),
+            strength=editing_config.get("strength"),
+            annotate=bool(editing_config.get("annotate", False)),
+            use_fused_path=use_fused,
+        )
 
     # capture the controlled sites' payloads during the inversion itself
     # (cross probabilities + self (q, k), on the device), so that the edits
     # run the bare 2-row CFG forward; `stored_attention: false` replays
-    # instead, for workloads whose payload exceeds the device
-    use_stored = bool(editing_config.get("stored_attention", True))
-    traj = stored = capture_rows = None
+    # instead, for workloads whose payload exceeds the device. The save/swap
+    # edit (`use_inversion_attention: false`) reads only the trajectory, so
+    # it captures nothing.
+    use_stored = bool(editing_config.get("stored_attention", True)) and bool(
+        editing_config.get("use_inversion_attention", True)
+    )
+    traj = stored = capture_rows = inv_store = traj_host = None
+    if editing_config.get("use_invertion_latents", True):
+        if use_fused:
+            traj, stored, capture_rows = _fused_inversion(pipe, make_logger(), latents, emb_src, num_steps,
+                                                          use_stored, timer, log, on_card)
+        else:
+            inv_store = AttentionStore(disk_store=disk_store, store_dir=logdir)
+            with timer.phase("inversion"):
+                traj_host = pipe.invert(latents, emb_src, num_steps, store=inv_store)
+            log.info(
+                "streaming store: %d steps, %d bytes a step, %.3f s of copies a step",
+                inv_store.num_steps, max(inv_store.step_bytes, default=0),
+                float(np.mean(inv_store.copy_seconds)) if inv_store.copy_seconds else 0.0,
+            )
+            # the inversion's average cross attention, drawn per token
+            from fatezero_tpu_torch.ptp.visualization import show_cross_attention
+
+            show_cross_attention(
+                pipe.tokenizer,
+                source_prompt,
+                {k: [m.numpy() for m in v] for k, v in inv_store.get_average_attention().items()},
+                res=int(latents.shape[2]) // 4,
+                save_path=os.path.join(logdir, "cross_attention", "attn.gif"),
+            )
+
+    with timer.phase("editing"), trace(os.path.join(logdir, "trace") if profile else None):
+        if traj is None and inv_store is None:
+            # generation mode: one run per sample seed from its seeded noise
+            videos = []
+            for s in sample_seeds:
+                noise = generation_noise(s, latents.shape).to(device)
+                seed_traj = torch.stack([latents] * num_steps + [noise])
+                sub = f"seed_{s}" if len(sample_seeds) > 1 else ""
+                videos += make_logger(sub).log_sample_images(pipe, source_video, traj=seed_traj, emb_source=emb_src)
+        else:
+            videos = make_logger().log_sample_images(
+                pipe,
+                source_video,
+                traj=traj,
+                inv_store=inv_store,
+                inverted_latents=traj_host,
+                emb_source=emb_src,
+                stored=stored,
+                stored_row0=capture_rows[0] if (capture_rows and stored is not None) else 0,
+            )
+    timer.save(os.path.join(logdir, "phase_timings.json"))
+    log.info("%s", timer)
+    save_config(
+        {
+            "config": config,
+            "pretrained_model_path": pretrained_model_path,
+            "dataset_config": dataset_config,
+            "editing_config": {k: v for k, v in editing_config.items() if k != "p2p_config"},
+            "seed": seed,
+            "logdir": logdir,
+        },
+        os.path.join(logdir, "config.yml"),
+    )
+    return logdir, videos
+
+
+def _fused_inversion(pipe, logger, latents, emb_src, num_steps, use_stored, timer, log, on_card):
+    """invert_fast with the payload the budget allows: (traj, stored, capture_rows)."""
+    stored = capture_rows = traj = None
     if use_stored:
         # a failed capture costs a whole inversion, so trim it beforehand to
         # the rows the budget holds (a meta-device trace, no device work):
@@ -190,9 +261,7 @@ def test(
     with timer.phase("inversion"):
         if use_stored:
             try:
-                traj, stored = pipe.invert_fast(
-                    latents, emb_src, num_steps, capture=True, capture_rows=capture_rows
-                )
+                traj, stored = pipe.invert_fast(latents, emb_src, num_steps, capture=True, capture_rows=capture_rows)
             except torch.cuda.OutOfMemoryError:
                 log.warning(
                     "attention payload exceeds device memory at this workload; falling "
@@ -206,30 +275,7 @@ def test(
             if on_card:
                 torch.cuda.empty_cache()
             traj = pipe.invert_fast(latents, emb_src, num_steps)
-
-    with timer.phase("editing"), trace(os.path.join(logdir, "trace") if profile else None):
-        videos = logger.log_sample_images(
-            pipe,
-            source_video,
-            traj=traj,
-            emb_source=emb_src,
-            stored=stored,
-            stored_row0=capture_rows[0] if (capture_rows and stored is not None) else 0,
-        )
-    timer.save(os.path.join(logdir, "phase_timings.json"))
-    log.info("%s", timer)
-    save_config(
-        {
-            "config": config,
-            "pretrained_model_path": pretrained_model_path,
-            "dataset_config": dataset_config,
-            "editing_config": {k: v for k, v in editing_config.items() if k != "p2p_config"},
-            "seed": seed,
-            "logdir": logdir,
-        },
-        os.path.join(logdir, "config.yml"),
-    )
-    return logdir, videos
+    return traj, stored, capture_rows
 
 
 def run(config, mesh: Optional[str] = None, **overrides):

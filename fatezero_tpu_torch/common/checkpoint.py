@@ -1,7 +1,7 @@
-"""Pipeline checkpoints, read side: the flax-native layout and safetensors files.
+"""Pipeline checkpoints: the flax-native layout and safetensors files.
 
-Counterpart of the read half of fatezero_tpu/common/checkpoint.py. That
-package saves a tuned pipeline as
+Counterpart of fatezero_tpu/common/checkpoint.py. Both packages save a tuned
+pipeline as
 
     <path>/unet/{config.json, flax_model.safetensors}
     <path>/vae/{config.json, flax_model.safetensors}            (optional)
@@ -9,18 +9,22 @@ package saves a tuned pipeline as
     <path>/tokenizer/{vocab.json, merges.txt}                   (optional)
     <path>/scheduler/scheduler_config.json
 
-with flax param trees flattened to '/'-joined keys. `convert/from_flax.py`
-turns those trees into the port's state_dicts. Files are read by a small
-numpy reader of the safetensors format (an 8-byte little-endian header
-length, a JSON header, then the raw bytes), so the `safetensors` package is
-not needed. Writing checkpoints comes with the tuning CLI.
+with flax param trees flattened to '/'-joined keys and a config.json of the
+config dataclass's fields (the two packages' dataclasses share their field
+names). `convert/from_flax.py` turns those trees into the port's
+state_dicts and `convert/to_flax.py` back. Files are read and written by a
+small numpy codec of the safetensors format (an 8-byte little-endian header
+length, a JSON header padded with spaces to 8 bytes, then the raw bytes), so
+the `safetensors` package is not needed.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import shutil
 import struct
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -55,6 +59,55 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
     return out
 
 
+_NAMES = {np.dtype(v).newbyteorder("<"): k for k, v in _DTYPES.items()}
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """The bfloat16 bit patterns (uint16) of float32 values, rounded to
+    nearest even, as torch rounds; NaNs stay NaNs."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    rounded = (bits + (0x7FFF + ((bits >> 16) & 1))) >> 16
+    nan = np.isnan(x)
+    return np.where(nan, (bits >> 16) | 0x40, rounded).astype(np.uint16)
+
+
+def write_safetensors(path: str, tensors: Dict[str, np.ndarray], bf16=()) -> None:
+    """Write {name: array} as a .safetensors file, tensors in sorted name
+    order. The names in `bf16` hold uint16 bit patterns (`bf16_bits`) and are
+    written as BF16."""
+    header, chunks, offset = {}, [], 0
+    for name in sorted(tensors):
+        arr = np.ascontiguousarray(tensors[name])
+        if name in bf16:
+            if arr.dtype != np.uint16:
+                raise TypeError(f"{name}: BF16 tensors are passed as their uint16 bits")
+            dtype = "BF16"
+        else:
+            dtype = _NAMES[arr.dtype.newbyteorder("<")]
+        raw = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": dtype, "shape": list(arr.shape), "data_offsets": [offset, offset + len(raw)]}
+        chunks.append(raw)
+        offset += len(raw)
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for raw in chunks:
+            f.write(raw)
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
     tree: Dict = {}
     for path, v in flat.items():
@@ -77,6 +130,51 @@ def load_component_config(dirpath: str) -> Optional[dict]:
         return None
     with open(p) as f:
         return json.load(f)
+
+
+def save_component(dirpath: str, config: Any, params: Dict) -> None:
+    """One component folder: config.json (the dataclass's fields; tuples as
+    lists, anything else json cannot hold as its str, as the JAX package
+    writes it) and flax_model.safetensors of the flax tree `params`."""
+    os.makedirs(dirpath, exist_ok=True)
+    if config is not None:
+        cfg = dataclasses.asdict(config) if dataclasses.is_dataclass(config) else dict(config)
+        with open(os.path.join(dirpath, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=2, default=str)
+    write_safetensors(os.path.join(dirpath, "flax_model.safetensors"), _flatten(params))
+
+
+def save_pipeline_checkpoint(
+    path: str,
+    unet_cfg,
+    unet_params,
+    vae_cfg=None,
+    vae_params=None,
+    text_cfg=None,
+    text_params=None,
+    tokenizer_dir: Optional[str] = None,
+    schedule_cfg: Optional[dict] = None,
+) -> str:
+    """Save a pipeline of flax trees (convert/to_flax.py makes them from the
+    port's state_dicts); components with None params are skipped."""
+    os.makedirs(path, exist_ok=True)
+    save_component(os.path.join(path, "unet"), unet_cfg, unet_params)
+    if vae_params is not None:
+        save_component(os.path.join(path, "vae"), vae_cfg, vae_params)
+    if text_params is not None:
+        save_component(os.path.join(path, "text_encoder"), text_cfg, text_params)
+    if tokenizer_dir is not None and os.path.isdir(tokenizer_dir):
+        dst = os.path.join(path, "tokenizer")
+        os.makedirs(dst, exist_ok=True)
+        for name in ("vocab.json", "merges.txt"):
+            src = os.path.join(tokenizer_dir, name)
+            if os.path.exists(src):
+                shutil.copy(src, os.path.join(dst, name))
+    sched = os.path.join(path, "scheduler")
+    os.makedirs(sched, exist_ok=True)
+    with open(os.path.join(sched, "scheduler_config.json"), "w") as f:
+        json.dump(schedule_cfg or {}, f, indent=2)
+    return path
 
 
 def is_flax_checkpoint(path: str) -> bool:

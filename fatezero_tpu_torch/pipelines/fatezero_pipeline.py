@@ -18,9 +18,14 @@ edit:
    visualisation work in every mode;
 5. ``decode_latents``.
 
+The streaming half: ``invert(store=...)`` copies every step's materialised
+maps to a host AttentionStore (ptp/store.py, optionally pickled to disk),
+and ``sample`` runs the plain CFG loop (``sample_fast``), the 'save' loop
+that captures into an ``edit_store``, or the edit that reads the store one
+host row per step (every controlled site materialised, as in JAX).
+
 Each JAX `lax.scan` is a Python loop over steps here, and its per-step gates
-are per-step tensors. The payload is kept in its logical layout. The
-streaming store (``invert``, ``sample``) waits for a later slice.
+are per-step tensors. The payload is kept in its logical layout.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from fatezero_tpu_torch.ops import schedule as S
 from fatezero_tpu_torch.ptp.context import EditContext, EditParams, InlineEditContext, StoreContext
 from fatezero_tpu_torch.ptp.controller import EditController
 from fatezero_tpu_torch.ptp.spatial_blend import apply_latent_blend, blend_mask
+from fatezero_tpu_torch.ptp.store import AttentionStore
 
 
 def _stack_steps(per_step):
@@ -153,14 +159,190 @@ class FateZeroPipeline:
         video = np.concatenate(outs, axis=0)
         return np.clip(video / 2.0 + 0.5, 0.0, 1.0)
 
-    # ------------------------------------------------------------- inversion
-    def invert(self, *args, **kwargs):
-        """The streaming-store inversion (maps copied to a host AttentionStore)."""
-        raise NotImplementedError("the streaming store is not ported yet: use invert_fast(capture=True)")
+    # ------------------------------------------------------------- streaming
+    @torch.inference_mode()
+    def invert(
+        self,
+        latents: torch.Tensor,
+        cond_embeddings: torch.Tensor,
+        num_inference_steps: int = 50,
+        store: Optional[AttentionStore] = None,
+        save_self_attention: bool = True,
+    ) -> List[torch.Tensor]:
+        """Clean -> noisy DDIM inversion with the streaming store: with a
+        `store`, every controlled site materialises its probabilities and each
+        step's cond-row maps and latent are copied to the host store. Only the
+        cond embedding is used (no CFG). Returns the host trajectory
+        [clean, ... steps x noisier] (fp32 CPU tensors [1, f, h, w, 4])."""
+        steps = num_inference_steps
+        timesteps = S.ddim_timesteps(self.schedule, steps)
+        cond = cond_embeddings[-1:]
+        lat = latents.float().to(self.device)
+        all_latents = [lat.cpu()]
+        for i in range(steps):
+            t = int(timesteps[steps - i - 1])
+            ctx = None
+            if store is not None:
+                ctx = StoreContext(save_self_attention=save_self_attention, store_dtype=self.store_dtype)
+            eps = self.unet(lat, t, cond, attn_ctx=ctx)
+            lat = S.ddim_invert_step(self.schedule, eps, t, lat, steps)
+            if store is not None:
+                store.append_step(ctx.captured, lat)
+            all_latents.append(lat.cpu())
+        return all_latents
 
-    def sample(self, *args, **kwargs):
-        """The streaming-store edit and plain sampling."""
-        raise NotImplementedError("the streaming store is not ported yet: use edit_fast(stored=...)")
+    @torch.inference_mode()
+    def sample_fast(
+        self,
+        latents: torch.Tensor,
+        text_embeddings: torch.Tensor,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        strength: float = 1.0,
+    ) -> torch.Tensor:
+        """The plain CFG DDIM loop (no store, no edit). strength < 1 runs only
+        the last int(steps * strength) timesteps."""
+        steps = num_inference_steps
+        ts = S.ddim_timesteps(self.schedule, steps)
+        n_used = min(steps, int(steps * strength))
+        lat = latents.float().to(self.device)
+        for t in ts[steps - n_used:]:
+            t = int(t)
+            eps = self.unet(torch.cat([lat, lat]), t, text_embeddings)
+            eps = S.classifier_free_guidance(eps[:1], eps[1:], guidance_scale)
+            lat = S.ddim_denoise_step(self.schedule, eps, t, lat, steps)
+        return lat
+
+    @torch.inference_mode()
+    def sample(
+        self,
+        latents: torch.Tensor,
+        text_embeddings: torch.Tensor,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        controller: Optional[EditController] = None,
+        inv_store: Optional[AttentionStore] = None,
+        edit_store: Optional[AttentionStore] = None,
+        inverted_latents: Optional[List[torch.Tensor]] = None,
+        strength: float = 1.0,
+    ) -> torch.Tensor:
+        """Noisy -> clean CFG denoising on the streaming store.
+
+        controller=None: the plain loop (`sample_fast`), or with `edit_store`
+        the 'save' loop, which captures every step's maps into it. With an
+        EditController: the prompt-to-prompt edit against `inv_store`, one
+        host row per step, every controlled site materialised; the latent
+        blend reads `inverted_latents` (the [clean, ...] trajectory) and the
+        blenders record their masks each step. strength < 1 skips the
+        earliest timesteps; an inversion store is read at each step's noise
+        level, a 'save' store (captured on the same sliced grid) by step.
+        """
+        steps = num_inference_steps
+        dev = self.device
+        timesteps = S.ddim_timesteps(self.schedule, steps)
+        n_used, t_start = steps, 0
+        if strength < 1.0:
+            n_used = min(steps, int(steps * strength))
+            t_start = steps - n_used
+            timesteps = timesteps[t_start:]
+        latent = latents.float().to(dev)
+
+        if controller is None:
+            if edit_store is None:
+                return self.sample_fast(latents, text_embeddings, steps, guidance_scale, strength=strength)
+            for t in timesteps:
+                latent, captured = self._save_step(latent, int(t), text_embeddings, guidance_scale, steps)
+                edit_store.append_step(captured, latent)
+            return latent
+
+        if inv_store is None:
+            raise ValueError("editing requires the inversion attention store")
+        num_stored = len(inv_store.attention_store_all_step)
+
+        def on_dev(a, dtype=torch.float32):
+            return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        mapper = on_dev(controller.mapper)
+        refine_mapper = on_dev(controller.refine_mapper, torch.long)
+        refine_alphas = on_dev(controller.refine_alphas)
+        equalizer = on_dev(controller.equalizer)
+        attn_blend, latent_blend = controller.attention_blend, controller.latent_blend
+        attn_alpha = on_dev(attn_blend.alpha_layers[:1]) if attn_blend is not None else None
+        latent_alpha = on_dev(latent_blend.alpha_layers) if latent_blend is not None else None
+        latent_hw = int(latents.shape[2])
+        blend_sums = None  # running sums of the live blend maps, on the card
+        for i in range(n_used):
+            t = int(timesteps[i])
+            store_step = t_start + i if controller.use_inversion_attention else i
+            idx = controller.step_in_store(store_step, num_stored)
+            injected = {k: [m.to(dev) for m in v] for k, v in inv_store.step_maps(idx).items()}
+            inv_latent = None
+            if latent_blend is not None:
+                lat_idx = (
+                    len(inverted_latents) - 1 - (t_start + i) if controller.use_inversion_attention else i + 1
+                )
+                inv_latent = inverted_latents[lat_idx].float().to(dev)
+                if blend_sums is None:
+                    blend_sums = [torch.zeros(m.shape, device=dev) for m in _blend_maps_16(injected, latent_hw)]
+            params = EditParams(
+                cross_edit_kind=controller.cross_edit_kind,
+                mapper=mapper,
+                refine_mapper=refine_mapper,
+                refine_alphas=refine_alphas,
+                equalizer=equalizer,
+                self_replace_active=controller.self_replace_active(i),
+                save_self_attention=controller.save_self_attention,
+            )
+            latent, captured, blend_sums, masks = self._edit_step(
+                latent, t, text_embeddings, guidance_scale, steps, controller, params,
+                injected, on_dev(controller.alpha_time_words[i, 0]), blend_sums, inv_latent,
+                attn_alpha, latent_alpha, blend_now=latent_blend is not None and latent_blend.latent_blend_active(i),
+            )
+            if edit_store is not None:
+                edit_store.append_step(captured, latent)
+            for blender, key in ((attn_blend, "attention_blend"), (latent_blend, "latent_blend")):
+                if blender is not None and masks[key] is not None:
+                    blender.counter += 1
+                    blender.record(masks[key].float().cpu().numpy(), f"step{i:03d}")
+        return latent
+
+    def _save_step(self, latent, t, text_embeddings, guidance_scale, steps):
+        """One CFG step that captures the cond row's maps ('save')."""
+        ctx = StoreContext(store_dtype=self.store_dtype)
+        eps = self.unet(torch.cat([latent, latent]), t, text_embeddings, attn_ctx=ctx)
+        eps = S.classifier_free_guidance(eps[:1], eps[1:], guidance_scale)
+        return S.ddim_denoise_step(self.schedule, eps, t, latent, steps), ctx.captured
+
+    def _edit_step(self, latent, t, text_embeddings, guidance_scale, steps, controller, params, injected,
+                   alpha_words, blend_sums, inv_latent, attn_alpha, latent_alpha, blend_now):
+        """One streaming edit step over one host row of the inversion store:
+        (new latent, the pre-edit cond-row maps, the blend sums, the masks)."""
+        latent_hw = int(latent.shape[2])
+        mask_viz = None
+        if controller.attention_blend is not None:
+            sizes = {int(m.shape[-2]) for k in ("down_self", "mid_self", "up_self") for m in injected.get(k, [])}
+            params.self_masks, mask_viz = _build_self_masks(
+                injected, attn_alpha, controller.attention_blend.th[0], latent_hw, sizes
+            )
+        ctx = EditContext(
+            injected=injected, params=params, alpha_words=alpha_words, store_dtype=self.store_dtype,
+            value_space_cross=False,
+        )
+        eps = self.unet(torch.cat([latent, latent]), t, text_embeddings, attn_ctx=ctx)
+        eps = S.classifier_free_guidance(eps[:1], eps[1:], guidance_scale)
+        new_latent = S.ddim_denoise_step(self.schedule, eps, t, latent, steps)
+        masks = {"attention_blend": mask_viz, "latent_blend": None}
+        if controller.latent_blend is not None:
+            live16 = [m.float() for m in _blend_maps_16(ctx.captured, latent_hw)]
+            blend_sums = [a + m for a, m in zip(blend_sums, live16)]
+            # two rows per map: the inversion step's map and the edit's running sum
+            pair = [torch.cat([im.float(), a], dim=0) for im, a in zip(_blend_maps_16(injected, latent_hw), blend_sums)]
+            lmask = blend_mask(pair, latent_alpha, tuple(new_latent.shape[2:4]), controller.latent_blend.th[0])
+            lmask = torch.maximum(lmask[:1], lmask)  # the union ('both')
+            masks["latent_blend"] = lmask
+            if blend_now:
+                new_latent = apply_latent_blend(new_latent, inv_latent, lmask)
+        return new_latent, ctx.captured, blend_sums, masks
 
     @torch.inference_mode()
     def invert_fast(

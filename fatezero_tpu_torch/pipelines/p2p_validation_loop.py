@@ -1,16 +1,20 @@
 """P2pSampleLogger: drives one edit per editing prompt and logs artifacts.
 
-Counterpart of fatezero_tpu/pipelines/p2p_validation_loop.py on its fused
-branch: per editing prompt build the controller from its `p2p_config.<i>`
-block, run `edit_fast` (stored, hybrid or replay, with strength and the
-cross-attention visualisation), write the blend masks' PNGs, save
-gif/mp4/frame-folder (annotated optionally), then a side-by-side grid of all
-prompts and the attention grid. The artifact names are the JAX package's.
+Counterpart of fatezero_tpu/pipelines/p2p_validation_loop.py: per editing
+prompt build the controller from its `p2p_config.<i>` block, run the edit,
+write the blend masks' PNGs, save gif/mp4/frame-folder (annotated
+optionally), then a side-by-side grid of all prompts and the attention grid.
+The artifact names are the JAX package's. The edit is, as there:
 
-The branches that need the streaming store (queue 1 item 3 of ROADMAP.md)
-raise NotImplementedError: `use_inversion_attention: false` (the
-save/swap edit, which also samples the reconstruction prompt without a
-controller) and `use_fused_path=False` (disk_store, save_attention_maps).
+* the fused path (default): `edit_fast` (stored, hybrid or replay, with
+  strength and the cross-attention visualisation);
+* the streaming path (`use_fused_path=False`: disk_store,
+  save_attention_maps): `sample` with the controller against the inversion's
+  AttentionStore;
+* `use_inversion_attention: false` (the save/swap edit, also generation
+  mode): the first prompt samples with an `edit_store` and captures its own
+  attention, every later prompt edits against that store; a reconstruction
+  prompt (the source prompt) samples without a controller.
 """
 from __future__ import annotations
 
@@ -25,8 +29,7 @@ from fatezero_tpu_torch.common.image_util import (
     save_gif_mp4_folder_type,
 )
 from fatezero_tpu_torch.ptp.controller import make_controller
-
-STREAMING_STORE = "the streaming store is not ported yet (ROADMAP.md queue 1 item 3)"
+from fatezero_tpu_torch.ptp.store import AttentionStore
 
 
 class P2pSampleLogger:
@@ -103,6 +106,8 @@ class P2pSampleLogger:
         pipeline,
         source_video: np.ndarray,
         traj=None,
+        inv_store: Optional[AttentionStore] = None,
+        inverted_latents=None,
         emb_source=None,
         stored=None,
         stored_row0: int = 0,
@@ -119,44 +124,68 @@ class P2pSampleLogger:
         JAX the seed loop is collapsed to sample_seeds[0]: the edit is
         deterministic given the inversion trajectory (DDIM at eta 0).
 
-        `traj` is the trajectory of invert_fast; `stored` its payload
-        (invert_fast(capture=True), possibly for rows [stored_row0, ...)), or
-        None to replay.
+        The fused path reads `traj`, the trajectory of invert_fast, and
+        `stored`, its payload (invert_fast(capture=True), possibly for rows
+        [stored_row0, ...)), or None to replay; the streaming path reads
+        `inv_store` and `inverted_latents`, what `invert(store=...)` gave.
         """
-        if not self.use_inversion_attention:
-            raise NotImplementedError(f"use_inversion_attention: false (the save/swap edit): {STREAMING_STORE}")
-        if not self.use_fused_path:
-            raise NotImplementedError(f"the streaming edit (disk_store, save_attention_maps): {STREAMING_STORE}")
-        if traj is None:
-            raise ValueError("the fused path needs the latent trajectory of invert_fast")
         # when annotating, the source row needs the same text band or the
         # grid concat fails on mismatched heights
         videos = [annotate_video(source_video, self.source_prompt) if self.annotate else source_video]
         attn_videos: List[np.ndarray] = []
         if emb_source is None:
             emb_source = pipeline.encode_prompt(self.source_prompt)
+        steps = self.num_inference_steps
+        n_used = min(steps, int(steps * self.strength)) if self.strength < 1.0 else steps
+        # trajectory entry n_used is the inversion state at the noise level of
+        # the first timestep a strength-sliced run denoises
+        init_latent = traj[n_used] if traj is not None else inverted_latents[n_used]
+        run = dict(num_inference_steps=steps, guidance_scale=self.guidance_scale, strength=self.strength)
+        save_store = None  # the save/swap edit: prompt 0's own maps
         for idx, prompt in enumerate(self.editing_prompts):
-            controller = self._controller_for(pipeline, idx, prompt)
+            edit_aux = None
+            controller = None
+            if prompt != self.source_prompt or self.use_inversion_attention:
+                controller = self._controller_for(pipeline, idx, prompt)
             emb_tgt = pipeline.encode_prompt(prompt)
-            latent, edit_aux = pipeline.edit_fast(
-                traj,
-                emb_source,
-                emb_tgt,
-                controller,
-                num_inference_steps=self.num_inference_steps,
-                guidance_scale=self.guidance_scale,
-                strength=self.strength,
-                viz=self.save_cross_attention,
-                stored=stored,
-                stored_row0=stored_row0,
-            )
-            # the edit returns the per-step blend masks; write them as the
-            # JAX package does, one PNG per (step, frame)
+            if not self.use_inversion_attention:
+                if idx == 0:
+                    save_store = AttentionStore()
+                    latent = pipeline.sample(init_latent, emb_tgt, edit_store=save_store, **run)
+                else:
+                    latent = pipeline.sample(
+                        init_latent, emb_tgt, controller=controller, inv_store=save_store,
+                        inverted_latents=[init_latent] + list(save_store.latents_store), **run,
+                    )
+            elif self.use_fused_path:
+                if traj is None:
+                    raise ValueError("the fused path needs the latent trajectory of invert_fast")
+                if controller is not None:
+                    latent, edit_aux = pipeline.edit_fast(
+                        traj,
+                        emb_source,
+                        emb_tgt,
+                        controller,
+                        viz=self.save_cross_attention,
+                        stored=stored,
+                        stored_row0=stored_row0,
+                        **run,
+                    )
+                else:
+                    latent = pipeline.sample(init_latent, emb_tgt, **run)
+            else:
+                latent = pipeline.sample(
+                    init_latent, emb_tgt, controller=controller, inv_store=inv_store,
+                    inverted_latents=inverted_latents, **run,
+                )
+            # the fused edit returns the per-step blend masks (the streaming
+            # one records them each step); write them as the JAX package
+            # does, one PNG per (step, frame)
             for aux_key, blender in (
-                ("attn_mask", controller.attention_blend),
-                ("latent_mask", controller.latent_blend),
+                ("attn_mask", None if controller is None else controller.attention_blend),
+                ("latent_mask", None if controller is None else controller.latent_blend),
             ):
-                if blender is None or aux_key not in edit_aux:
+                if edit_aux is None or blender is None or aux_key not in edit_aux:
                     continue
                 for step_mask in edit_aux[aux_key].float().cpu().numpy():
                     blender.counter += 1
@@ -164,7 +193,7 @@ class P2pSampleLogger:
             video = pipeline.decode_latents(latent)
             tag = f"step_{step}_{idx}_{self.sample_seeds[0]}"
             save_gif_mp4_folder_type(video, os.path.join(self.logdir, f"{tag}.gif"))
-            if "cross_avg" in edit_aux:
+            if edit_aux is not None and "cross_avg" in edit_aux:
                 # per-edit cross-attention heatmap gif, aggregated over
                 # layers, heads and steps, saved as the `...atten.gif` sibling
                 from fatezero_tpu_torch.ptp.visualization import show_cross_attention

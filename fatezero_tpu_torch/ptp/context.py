@@ -305,8 +305,10 @@ class EditContext(StoreContext):
     the visit order of the UNet. Cross sites run in value space, except
     those with `materialize_cross_size` queries: the latent blend and the
     attention visualisation read their live maps, so they materialise through
-    ``process``, which stores the cond row in ``captured``. Self sites run in
-    value space from ``injected_qk`` and otherwise materialise.
+    ``process``, which stores the cond row in ``captured``. With
+    `value_space_cross=False` every cross site materialises (the streaming
+    edit, which captures them all). Self sites run in value space from
+    ``injected_qk`` and otherwise materialise.
     """
 
     def __init__(
@@ -317,8 +319,10 @@ class EditContext(StoreContext):
         store_dtype=torch.bfloat16,
         injected_qk: Optional[Dict[str, List]] = None,
         materialize_cross_size: Optional[int] = None,
+        value_space_cross: bool = True,
     ):
         super().__init__(save_self_attention=params.save_self_attention, store_dtype=store_dtype)
+        self.value_space_cross = value_space_cross
         self.injected = injected
         self.injected_qk = injected_qk
         self.params = params
@@ -365,6 +369,8 @@ class EditContext(StoreContext):
         live cond values. Cross sites go through _cross_value_space.
         """
         if is_cross:
+            if not self.value_space_cross:
+                return None
             if self.materialize_cross_size is not None and qh.shape[-2] == self.materialize_cross_size:
                 return None  # the blend and viz read these live maps
             return self._cross_value_space(qh, kh, vh, scale, place, video_shape)

@@ -38,6 +38,13 @@ class EditController:
         lo, hi = self.self_replace_window
         return lo <= step < hi
 
+    def step_in_store(self, step: int, num_stored: int) -> int:
+        """The store row an edit step reads: an inversion store runs clean ->
+        noisy and the edit noisy -> clean, so it is read backwards."""
+        if self.use_inversion_attention:
+            return num_stored - step - 1
+        return step
+
     def edit_window(self, n_used: int) -> int:
         """Number of leading edit steps that consume inversion-pass attention;
         steps from here on are identity edits (zero alphas, no self swap).

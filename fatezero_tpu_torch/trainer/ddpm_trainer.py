@@ -11,8 +11,9 @@ Counterpart of fatezero_tpu/trainer/ddpm_trainer.py:
     VAE-encoded, noised video latents; optional prior preservation on class
     images;
   * gradients clipped to a global norm, then AdamW (torch's, whose decoupled
-    decay equals optax.adamw's) or the int8-state AdamW (trainer/adam8bit.py),
-    with the diffusers learning-rate schedule family (`make_lr_schedule`);
+    decay equals optax.adamw's), the int8-state AdamW (trainer/adam8bit.py)
+    or Adafactor (trainer/adafactor.py, optax.adafactor's rule), with the
+    diffusers learning-rate schedule family (`make_lr_schedule`);
   * `gradient_checkpointing` in the UNet config recomputes every down, mid
     and up block in the backward pass (models/unet3d.py).
 
@@ -202,9 +203,7 @@ class DDPMTrainer:
         self.weight_decay = weight_decay
         self.lr = make_lr_schedule(lr_scheduler, learning_rate, train_steps, lr_warmup_steps)
         self.optimizer = optimizer or ("adamw8bit" if use_8bit_adam else "adamw")
-        if self.optimizer == "adafactor":
-            raise NotImplementedError("the adafactor optimizer is not ported yet: use adamw or adamw8bit")
-        if self.optimizer not in ("adamw", "adamw8bit"):
+        if self.optimizer not in ("adamw", "adamw8bit", "adafactor"):
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
         mask = trainable_mask(unet, train_temporal_conv=train_temporal_conv)
         for name, p in unet.named_parameters():
@@ -228,6 +227,10 @@ class DDPMTrainer:
             from fatezero_tpu_torch.trainer.adam8bit import AdamW8bit
 
             opt = AdamW8bit(params, lr=self.lr(0), weight_decay=self.weight_decay)
+        elif self.optimizer == "adafactor":
+            from fatezero_tpu_torch.trainer.adafactor import Adafactor
+
+            opt = Adafactor(params, lr=self.lr(0))
         else:
             opt = torch.optim.AdamW(params, lr=self.lr(0), betas=(0.9, 0.999), eps=1e-8,
                                     weight_decay=self.weight_decay)

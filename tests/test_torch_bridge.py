@@ -91,7 +91,10 @@ def test_imports_without_jax():
         "assert {'fatezero_tpu_torch.ops.flash_variants', 'fatezero_tpu_torch.scripts.bench_flash_variants',\n"
         "        'fatezero_tpu_torch.scripts.bench_kernel_boundary', 'fatezero_tpu_torch.ptp.spatial_blend',\n"
         "        'fatezero_tpu_torch.cli.edit', 'fatezero_tpu_torch.pipelines.p2p_validation_loop',\n"
-        "        'fatezero_tpu_torch.common.config', 'fatezero_tpu_torch.common.checkpoint'} <= set(sys.modules)\n"
+        "        'fatezero_tpu_torch.common.config', 'fatezero_tpu_torch.common.checkpoint',\n"
+        "        'fatezero_tpu_torch.cli.train', 'fatezero_tpu_torch.pipelines.validation_loop',\n"
+        "        'fatezero_tpu_torch.ptp.store', 'fatezero_tpu_torch.convert.to_flax',\n"
+        "        'fatezero_tpu_torch.trainer.adafactor'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -140,11 +143,13 @@ def test_entry_points_default_to_cuda():
     import inspect
 
     from fatezero_tpu_torch.cli.edit import test as edit_test
+    from fatezero_tpu_torch.cli.train import train
     from fatezero_tpu_torch.models.loader import _load_flax_native, _load_pretrained
     from fatezero_tpu_torch.ops.schedule import make_schedule
     from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
 
-    for fn in (load_models, FateZeroPipeline.__init__, make_schedule, edit_test, _load_pretrained, _load_flax_native):
+    for fn in (load_models, FateZeroPipeline.__init__, make_schedule, edit_test, train, _load_pretrained,
+               _load_flax_native):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
 
 

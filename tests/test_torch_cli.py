@@ -13,7 +13,7 @@ threshold: every map the port's masks threshold is recorded and must keep
 clear of its threshold by more than BAND, so no pixel can flip.
 
 Also: every shipped config parses to the JAX package's dict and wires its
-controllers through the port; the disk-store config raises; a config whose
+controllers through the port; the multi-device paths raise; a config whose
 pipeline target names the JAX package builds the port's class with jax never
 imported (`python -m fatezero_tpu_torch.cli.edit --config`, in a
 subprocess); the generation-mode guard; the payload budget gate (replay at
@@ -48,7 +48,6 @@ WORKLOADS = sorted(
     p for p in glob.glob(os.path.join(CONFIG_DIR, "**", "*.yaml"), recursive=True)
     if os.path.relpath(p, CONFIG_DIR).count(os.sep)
 )
-DISK_STORE = os.path.join(CONFIG_DIR, "low_resource_teaser", "jeep_watercolor_ddim_10_steps_disk_store.yaml")
 ATOL = 2e-3
 BAND = 1e-3
 FRAMES, STEPS = 2, 2
@@ -181,24 +180,13 @@ def test_generation_mode_guard():
                  device="cpu")
 
 
-@pytest.mark.parametrize(
-    "over",
-    [{"disk_store": True}, {"editing_config": {"save_attention_maps": True}},
-     {"editing_config": {"use_invertion_latents": False, "use_inversion_attention": False}},
-     {"editing_config": {"use_inversion_attention": False}}, {"sharding": {"mesh": "auto"}}],
-    ids=["disk_store", "save_attention_maps", "generation", "no-inversion-attention", "sharding"],
-)
+@pytest.mark.parametrize("over", [{"sharding": {"mesh": "auto"}}], ids=["sharding"])
 def test_unported_paths_raise(over):
-    """The streaming store's and the multi-device paths raise before any work, naming their queue item."""
-    with pytest.raises(NotImplementedError, match="queue 1 item (3|7)"):
+    """The multi-device paths raise before any work, naming their queue item."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         cli.test(config="x.yaml", device="cpu", **over)
     with pytest.raises(NotImplementedError, match="item 7"):
         cli.run(DEMO, mesh="1,4,2")
-
-
-def test_disk_store_config_raises():
-    with pytest.raises(NotImplementedError, match="disk_store"):
-        cli.run(DISK_STORE, device="cpu")
 
 
 @pytest.mark.parametrize("path", WORKLOADS, ids=_rel)

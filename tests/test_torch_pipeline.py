@@ -184,11 +184,3 @@ def test_blends_partial_capture_and_streaming_store_raise(slices):
         for (qa, ka), (qb, kb) in zip(pairs, part["qk"][key]):
             np.testing.assert_array_equal(qb[0].numpy(), qa[1].numpy())
             np.testing.assert_array_equal(kb[0].numpy(), ka[1].numpy())
-
-
-def test_streaming_store_raises(slices):
-    """The streaming store (invert, sample) is the one part of the pipeline not ported."""
-    pipe = slices["pipe"]
-    for method in (pipe.invert, pipe.sample):
-        with pytest.raises(NotImplementedError):
-            method(torch.zeros(1, F, HW, HW, 4), torch.from_numpy(slices["emb"][0]), STEPS)

@@ -179,7 +179,7 @@ def test_run_steps_deterministic_and_frozen(models):
         torch.testing.assert_close(p, runs[1][1][n], atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("optimizer", ["adamw", "adamw8bit"])
+@pytest.mark.parametrize("optimizer", ["adamw", "adamw8bit", "adafactor"])
 def test_save_load_round_trip(models, tmp_path, optimizer):
     """A resumed run continues exactly as the uninterrupted one."""
     _, params, _, vae_params = models
@@ -208,12 +208,6 @@ def test_save_load_round_trip(models, tmp_path, optimizer):
     other = _trainer(*_port(params, vae_params), train_temporal_conv=False)
     with pytest.raises(ValueError):
         T.load_training_state(str(tmp_path), other, other.init_state())
-
-
-def test_adafactor_not_ported(models):
-    _, params, _, vae_params = models
-    with pytest.raises(NotImplementedError):
-        _trainer(*_port(params, vae_params), optimizer="adafactor")
 
 
 @pytest.mark.parametrize(
