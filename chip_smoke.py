@@ -114,6 +114,25 @@ Phases, each synchronised and timed:
       path's edit on the same trajectory (bf16, informational), then an fp32
       witness at full width: the streaming edit against the fused stored
       edit, which must agree within one bf16 unit of the largest value;
+   c4. the dataset x p2p-grid sweep, `fatezero_tpu_torch.cli.dataset_sweep.run`,
+      on config/dataset_sweep.yaml as shipped (its grid of self_replace_steps
+      0.5 and 0.9, its editing block: one replace edit, 3 steps) but for
+      random:sd in bf16 and two videos of 8 seeded 512x512 PNGs at
+      image_size 512 (the frame loader's exact case): four edits, each with
+      a `[sweep]` line (wall, phase_timings.json, capture plan, peak memory,
+      K1 against the sites' count, the frame loader that ran); the four
+      result folders must be distinct;
+   c5. the CLIP evaluation of those folders, `fatezero_tpu_torch.cli.evaluate.run`
+      with an `items:` bench and a seeded random ViT-B/32, on the card and on
+      the CPU: features within EVAL_FEATURE_TOL, Tem-Con within
+      EVAL_TEMCON_TOL, logit gaps within EVAL_GAP_BAND, Frame-Acc equal on
+      every frame whose logit gap clears EVAL_GAP_BAND, with the stub tokens and with a BPE tokenizer of the
+      prompts (with which some frames must); config/bench_clean_prompt.yaml on a
+      synthetic results tree (n, missing, per_item); image_features' frames
+      per second on the card (`[eval]` lines);
+   c6. the C++ frame loader (`[native]`): bit-equal to PIL at native
+      resolution where it builds; where it does not, why, and
+      native_loader=True must raise;
    d. the flash-variants probe (fatezero_tpu_torch.scripts.bench_flash_variants),
       the path of K1b: K1, K1b and the library's attention at three edit
       shapes (192 folded rows, d 40, bf16);
@@ -2266,6 +2285,316 @@ def stream_phase(kernels, reset_counts, check_plain):
     return results
 
 
+# ------------------------------------------------------- sweep and evaluation
+SWEEP_CONFIG = os.path.join(REPO, "config", "dataset_sweep.yaml")
+BENCH_CONFIG = os.path.join(REPO, "config", "bench_clean_prompt.yaml")
+SWEEP_VIDEOS = 2
+# card against CPU, both fp32 (matmuls and the patch product in full fp32,
+# the resize in fp32 on both): unit-norm 512-d features after 12 layers
+# differ by ~2e-7 on an H100 (PERF.md), Tem-Con by ~1e-7
+EVAL_FEATURE_TOL = 1e-5
+EVAL_TEMCON_TOL = 1e-5
+# Frame-Acc thresholds P(target) >= P(source), i.e. the logit gap (target
+# minus source at the reference's scale of 100) >= 0. Card and CPU gaps
+# differed by at most 1.9e-5 on an H100 (PERF.md); every gap is held within
+# EVAL_GAP_BAND of the CPU's, so a frame farther than that from the tie
+# cannot change its decision by rounding, and its decisions must agree
+EVAL_GAP_BAND = 1e-3
+
+
+def sweep_phase(kernels, reset_counts, check_plain):
+    """config/dataset_sweep.yaml through cli.dataset_sweep.run at full SD-1.4
+    width, as shipped (its p2p grid, its editing block: 3 DDIM steps, one
+    replace edit) but for random:sd in bf16 and two videos of FRAMES seeded
+    RES^2 PNG frames at image_size RES (the frame loader's exact case), run
+    from a work directory so that the runs' result/ folders land there.
+    Each run is measured alone (the sweep's call of cli.edit.test is
+    wrapped): wall, phase_timings.json, the capture plan, peak memory, K1's
+    launches against the sites' count and the frame loader that ran. The
+    four result folders must be distinct and hold every artifact. Returns
+    (work dir, [run dict]); the caller removes the work dir."""
+    import copy
+    import shutil
+
+    import torch
+    import yaml
+
+    from fatezero_tpu_torch import native
+    from fatezero_tpu_torch.cli import dataset_sweep
+    from fatezero_tpu_torch.common.config import load_config
+    from fatezero_tpu_torch.data.dataset import ImageSequenceDataset
+    from fatezero_tpu_torch.models.unet3d import UNet3DConfig, UNetPseudo3DConditionModel
+    from fatezero_tpu_torch.pipelines import fatezero_pipeline as FPM
+
+    work = os.path.join(REPO, "build", "sweep_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = load_config(SWEEP_CONFIG).to_dict()
+    cfg["pretrained_model_path"] = "random:sd"
+    shipped = cfg["datasets"][0]
+    cfg["datasets"] = []
+    for v in range(SWEEP_VIDEOS):
+        ds = copy.deepcopy(shipped)
+        ds["dataset_config"].update(path=write_frames(os.path.join(work, f"video_{v}"), FRAMES, (RES, RES), seed=20 + v),
+                                    n_sample_frame=FRAMES, sampling_rate=1, image_size=RES)
+        cfg["datasets"].append(ds)
+    config = os.path.join(work, "dataset_sweep.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    meta = UNetPseudo3DConditionModel(UNet3DConfig(), dtype=torch.bfloat16, device="meta")
+
+    runs, test = [], dataset_sweep.test
+    loads = {"native": 0, "pil": 0}
+    load_batch, load_frames = native.load_batch, ImageSequenceDataset._load_frames
+
+    def native_load(*args, **kwargs):
+        loads["native"] += 1
+        return load_batch(*args, **kwargs)
+
+    def pil_load(self, indices):
+        loads["pil"] += 1
+        return load_frames(self, indices)
+
+    def measured(**sub):
+        loads.update(native=0, pil=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with Recorder() as rec:
+            plans = rec.wrap(FPM.FateZeroPipeline, "plan_capture", keep=lambda o, a, kw, out: (kw["window"], out))
+            out = test(**sub)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        logdir, videos = os.path.abspath(out[0]), out[1]  # the cwd is the work dir
+        k1 = {fn.__name__: fn.launches for fn in kernels}["flash_forward"]
+        check_plain(f"sweep {len(runs)}")
+        with open(os.path.join(logdir, "phase_timings.json")) as f:
+            timings = {k: v["seconds"] for k, v in json.load(f).items()}
+        window, plan = plans[0][1]
+        steps = int(sub["editing_config"]["num_inference_steps"])
+        prompts = list(sub["editing_config"]["editing_prompts"])
+        expect, _ = cli_k1_expected(meta, RES // 8, steps, len(prompts), plan, window)
+        frames = [os.path.join(logdir, f"step_0_{i}_0") for i in range(len(prompts))]
+        names = set(artifact_names(logdir))
+        want = {"input.gif", "grid.gif", "config.yml", "log.log", "phase_timings.json"} | {
+            f"step_0_{i}_0/{j:05d}.png" for i in range(len(prompts)) for j in range(FRAMES)}
+        finite = all(np.isfinite(v).all() and v.shape == (FRAMES, RES, RES, 3) for v in videos)
+        loader = "native" if loads["native"] and not loads["pil"] else ("pil" if loads["pil"] and not loads["native"] else loads)
+        run = dict(logdir=os.path.relpath(logdir, work), video=sub["dataset_config"]["path"],
+                   self_replace_steps=sub["editing_config"]["p2p_config"][0]["self_replace_steps"],
+                   wall_s=wall, phase_seconds=timings, plan=plan, window=window,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, k1=k1, k1_expected=expect,
+                   frame_loader=loader, artifacts=len(names), videos_finite=finite)
+        log(f"[sweep] run {len(runs)}: {json.dumps(run)}")
+        missing = sorted(want - names)
+        if missing or not finite or len(videos) != len(prompts):
+            raise AssertionError(f"sweep run {len(runs)}: missing {missing[:5]}, finite {finite}, {len(videos)} videos")
+        if k1 != expect:
+            raise AssertionError(f"sweep run {len(runs)}: K1 launched {k1} times, the sites' shapes give {expect}")
+        if not isinstance(loader, str):
+            raise AssertionError(f"sweep run {len(runs)}: both frame loaders ran {loader}")
+        runs.append(dict(run, logdir=logdir, frames=frames, source=sub["dataset_config"]["prompt"], targets=prompts))
+        return out
+
+    cwd = os.getcwd()
+    dataset_sweep.test, native.load_batch, ImageSequenceDataset._load_frames = measured, native_load, pil_load
+    try:
+        os.chdir(work)
+        phase("sweep (dataset_sweep.run)", lambda: dataset_sweep.run(config))
+    finally:
+        os.chdir(cwd)
+        dataset_sweep.test, native.load_batch, ImageSequenceDataset._load_frames = test, load_batch, load_frames
+    logdirs = [r["logdir"] for r in runs]
+    log(f"[sweep] {len(runs)} runs into {[os.path.relpath(d, work) for d in logdirs]}")
+    if len(runs) != SWEEP_VIDEOS * len(cfg["p2p_grid"]) or len(set(logdirs)) != len(runs):
+        raise AssertionError(f"the sweep ran {len(runs)} edits into {len(set(logdirs))} distinct folders")
+    torch.cuda.empty_cache()
+    return work, runs
+
+
+def eval_phase(work, runs):
+    """cli.evaluate.run over the sweep's result frame folders (an `items:`
+    bench) with a seeded random ViT-B/32, on the card and on the CPU in this
+    process: the same n, items and missing list; per item Tem-Con within
+    EVAL_TEMCON_TOL and Frame-Acc equal where every frame clears
+    EVAL_GAP_BAND; image and text features within EVAL_FEATURE_TOL, and every
+    frame's Frame-Acc decision equal outside the band, with the stub tokens
+    and with a BPE tokenizer of the prompts (with which some frames must
+    clear it). Then the shipped config/bench_clean_prompt.yaml (the
+    reference's schema) against a synthetic results tree keyed by two of its
+    names, on the card: n, missing and per_item as the JAX package's CPU
+    test has them. Last, image_features' frames per second on the card."""
+    import warnings
+
+    import torch
+    import yaml
+
+    from fatezero_tpu_torch.cli import evaluate
+    from fatezero_tpu_torch.common.image_util import load_image_folder
+    from fatezero_tpu_torch.eval.clip_metrics import CLIPEvaluator, load_evaluator
+    from fatezero_tpu_torch.models.tokenizer import CLIPTokenizer
+    from fatezero_tpu_torch.scripts import card
+
+    items = [{"folder": os.path.relpath(folder, work), "source_prompt": r["source"], "target_prompt": target}
+             for r in runs for folder, target in zip(r["frames"], r["targets"])]
+    bench = os.path.join(work, "eval_items.yaml")
+    with open(bench, "w") as f:
+        yaml.safe_dump({"clip_checkpoint": None, "results_root": work, "items": items}, f)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            outs[dev], dt = phase(f"evaluate.run ({dev})", lambda: evaluate.run(bench, device=dev))
+        if not any("RANDOM weights" in str(w.message) for w in caught):
+            raise AssertionError("load_evaluator did not warn about its random weights")
+        log(f"[eval] evaluate.run on {dev}: {dt:.3f} s, frame_acc {outs[dev]['frame_acc']} tem_con "
+            f"{outs[dev]['tem_con']} n {outs[dev]['n']} missing {outs[dev]['missing']} "
+            f"random_weights {outs[dev]['random_weights']}")
+    g, c = outs["cuda"], outs["cpu"]
+    if not (g["n"] == c["n"] == len(items) and g["missing"] == c["missing"] == [] and g["random_weights"] is True
+            and set(g["per_item"]) == set(c["per_item"]) == {it["folder"] for it in items}):
+        raise AssertionError(f"evaluate.run card vs CPU: n {g['n']}/{c['n']}, missing {g['missing']}/{c['missing']}")
+
+    # The features again, from evaluators with the same weights: with the
+    # stub tokens evaluate.run used, and with a BPE tokenizer of the prompts'
+    # words. The stub's ids follow Python's salted hash, and where the
+    # highest id (the pooled token) is a word both prompts share at the same
+    # place, the two text features are equal and every gap is 0, so only the
+    # BPE tokens (the EOT id highest, as in CLIP) ensure that frames clear
+    # the band.
+    evs = {dev: load_evaluator(None, seed=0, device=dev) for dev in ("cuda", "cpu")}
+    tokdir = os.path.join(work, "tokenizer")
+    write_tokenizer(tokdir, " ".join(p for it in items for p in (it["source_prompt"], it["target_prompt"])))
+    bpe = {d: CLIPEvaluator(ev.model, CLIPTokenizer.from_pretrained(tokdir, subfolder=""), random_weights=True)
+           for d, ev in evs.items()}
+    feat_err = txt_err = 0.0
+    counts = {"stub": [0, 0], "bpe": [0, 0]}  # frames outside, inside the band
+    for it in items:
+        frames = np.stack(load_image_folder(os.path.join(work, it["folder"]))).astype(np.float32) / 255.0
+        prompts = [it["source_prompt"], it["target_prompt"]]
+        img = {d: ev.image_features(frames).float().cpu() for d, ev in evs.items()}
+        feat_err = max(feat_err, (img["cuda"] - img["cpu"]).abs().max().item())
+        pg, pc = g["per_item"][it["folder"]], c["per_item"][it["folder"]]
+        line = []
+        for tokens, pair in (("stub", evs), ("bpe", bpe)):
+            txt = {d: ev.text_features(prompts).float().cpu() for d, ev in pair.items()}
+            txt_err = max(txt_err, (txt["cuda"] - txt["cpu"]).abs().max().item())
+            gap = {d: (100.0 * img[d] @ txt[d].t()).diff(dim=-1)[:, 0] for d in img}  # target - source
+            clear = gap["cpu"].abs() > EVAL_GAP_BAND
+            counts[tokens][0] += int(clear.sum())
+            counts[tokens][1] += int((~clear).sum())
+            if (gap["cuda"] - gap["cpu"]).abs().max().item() > EVAL_GAP_BAND:
+                raise AssertionError(f"{it['folder']}: logit gaps differ card vs CPU by more than {EVAL_GAP_BAND}")
+            if not torch.equal(gap["cuda"][clear] >= 0, gap["cpu"][clear] >= 0):
+                raise AssertionError(f"{it['folder']}: a Frame-Acc decision differs card vs CPU outside the band")
+            if tokens == "stub" and bool(clear.all()) and pg["frame_acc"] != pc["frame_acc"]:
+                raise AssertionError(f"{it['folder']}: Frame-Acc card {pg['frame_acc']} vs CPU {pc['frame_acc']}")
+            line.append(f"{tokens} gaps (CPU) {[round(x, 5) for x in gap['cpu'].tolist()]}, max |card - CPU| "
+                        f"{(gap['cuda'] - gap['cpu']).abs().max().item():.3e}, {int(clear.sum())} of {len(clear)} clear")
+        log(f"[eval] {it['folder']}: card frame_acc {pg['frame_acc']} tem_con {pg['tem_con']:.7f}; CPU frame_acc "
+            f"{pc['frame_acc']} tem_con {pc['tem_con']:.7f}; band {EVAL_GAP_BAND}; " + "; ".join(line))
+        if abs(pg["tem_con"] - pc["tem_con"]) > EVAL_TEMCON_TOL:
+            raise AssertionError(f"{it['folder']}: Tem-Con card {pg['tem_con']} vs CPU {pc['tem_con']}")
+    log(f"[eval] features card vs CPU: image max_abs_err {feat_err:.3e}, text {txt_err:.3e} (tol {EVAL_FEATURE_TOL}); "
+        f"frames outside, inside the gap band: stub tokens {counts['stub']}, BPE tokens {counts['bpe']}")
+    if not (feat_err <= EVAL_FEATURE_TOL and txt_err <= EVAL_FEATURE_TOL):
+        raise AssertionError("CLIP features disagree card vs CPU")
+    if counts["bpe"][0] == 0:
+        raise AssertionError(f"no frame's logit gap clears the band {EVAL_GAP_BAND}: Frame-Acc was not compared")
+
+    # the reference schema, as tests/test_eval_clip.py runs it through the JAX CLI
+    tree = os.path.join(work, "bench_tree")
+    for i, name in enumerate(("swan_cartoon", "car_watercolor")):
+        write_frames(os.path.join(tree, name), 3, (48, 48), seed=30 + i)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out = evaluate.run(BENCH_CONFIG, results_root=tree, device="cuda")
+    names = [it["folder"] for it in evaluate.normalize_bench(evaluate.load_config(BENCH_CONFIG).to_dict())]
+    want_missing = [n for n in names if n not in ("swan_cartoon", "car_watercolor")]
+    log(f"[eval] bench_clean_prompt.yaml: n {out['n']}, per_item {sorted(out['per_item'])}, "
+        f"{len(out['missing'])} missing of {len(names)}, frame_acc {out['frame_acc']} tem_con {out['tem_con']}")
+    if not (out["n"] == 2 and set(out["per_item"]) == {"swan_cartoon", "car_watercolor"}
+            and out["missing"] == want_missing and np.isfinite([out["frame_acc"], out["tem_con"]]).all()):
+        raise AssertionError(f"bench_clean_prompt.yaml on the card: {out}")
+
+    # image_features (preprocess + tower) on one sweep video, timed on the card
+    frames = np.stack(load_image_folder(os.path.join(work, items[0]["folder"]))).astype(np.float32) / 255.0
+    ev, reps = evs["cuda"], 10
+    ev.image_features(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ev.image_features(frames)
+    torch.cuda.synchronize()
+    fps = reps * len(frames) / (time.perf_counter() - t0)
+    log(f"[eval] image_features on the card: {fps:.1f} frames/s ({len(frames)} frames of {frames.shape[1]}x"
+        f"{frames.shape[2]} a call, host decode excluded); {card()}")
+    del evs
+    torch.cuda.empty_cache()
+    return dict(card=g, cpu=c, feature_err=feat_err, text_err=txt_err, band_counts=counts, fps=fps)
+
+
+def native_phase():
+    """The C++ frame loader on this machine. Where it builds: load_batch
+    against the PIL path on seeded frames, bit-equal at native resolution,
+    the gap printed when downscaling. Where it does not: why, printed, and
+    native_loader=True must raise while the auto mode reads with PIL."""
+    import shutil
+
+    from fatezero_tpu_torch import native
+    from fatezero_tpu_torch.data.dataset import ImageSequenceDataset
+
+    work = os.path.join(REPO, "build", "native_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        path = write_frames(os.path.join(work, "frames"), 4, (RES, RES), seed=40)
+        kw = dict(path=path, n_sample_frame=4, sampling_rate=1)
+        pil = ImageSequenceDataset(**kw, image_size=RES, native_loader=False)[0]["images"]
+        try:
+            lib = native.build()
+            native.get_lib()
+        except native.NativeLoaderUnavailable as e:
+            lines = str(e).splitlines()
+            why = next((ln for ln in lines if "error" in ln), lines[-1])
+            log(f"[native] the C++ frame loader is unavailable on this machine: {why}")
+            try:
+                ImageSequenceDataset(**kw, image_size=RES, native_loader=True)[0]
+            except native.NativeLoaderUnavailable:
+                log("[native] native_loader=True raised NativeLoaderUnavailable, as it must")
+            else:
+                raise AssertionError("native_loader=True did not raise without the library")
+            auto = ImageSequenceDataset(**kw, image_size=RES)[0]["images"]
+            if not np.array_equal(auto, pil):
+                raise AssertionError("the auto mode without the library does not read the PIL path's clip")
+            log("[native] auto mode read the PIL path's clip")
+            return dict(available=False, reason=str(e))
+        paths = [os.path.join(path, f) for f in sorted(os.listdir(path))]
+        exact = native.load_batch(paths, RES)
+        down = ImageSequenceDataset(**kw, image_size=RES // 2, native_loader=True)[0]["images"]
+        ref = ImageSequenceDataset(**kw, image_size=RES // 2, native_loader=False)[0]["images"]
+        gap = np.abs(down - ref)
+        log(f"[native] built {os.path.relpath(lib, REPO)}; at {RES}^2 bit-equal to PIL {np.array_equal(exact, pil)}; "
+            f"downscaled to {RES // 2}^2 max |native - PIL| {gap.max():.4f}, mean {gap.mean():.5f}")
+        if not np.array_equal(exact, pil):
+            raise AssertionError("the native loader differs from PIL at native resolution")
+        return dict(available=True, downscale_max=float(gap.max()), downscale_mean=float(gap.mean()))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_eval_paths(kernels, reset_counts, check_plain):
+    """The sweep, the evaluation of its folders and the frame loader (c4-c6)."""
+    import shutil
+
+    work = None
+    try:
+        work, runs = sweep_phase(kernels, reset_counts, check_plain)
+        phase("eval (card vs CPU)", lambda: eval_phase(work, runs))
+    finally:
+        shutil.rmtree(work or os.path.join(REPO, "build", "sweep_smoke"), ignore_errors=True)
+    phase("native frame loader", native_phase)
+
+
 def main() -> int:
     import torch
 
@@ -2529,6 +2858,10 @@ def main() -> int:
     # checkpoint; the streaming store through the edit CLI
     train_cli_phase(kernels, reset_counts, check_plain)
     stream_phase(kernels, reset_counts, check_plain)
+
+    # ---- main paths c4-c6: the dataset x p2p-grid sweep, the CLIP evaluation
+    # of its result folders card vs CPU, the C++ frame loader
+    run_eval_paths(kernels, reset_counts, check_plain)
 
     # ---- main path d: the flash-variants probe, K1b's path. Its own check
     # runs K1b's plain version, flash_bf16_reference, which is not watched.

@@ -77,7 +77,7 @@ def write_safetensors(path: str, tensors: Dict[str, np.ndarray], bf16=()) -> Non
     written as BF16."""
     header, chunks, offset = {}, [], 0
     for name in sorted(tensors):
-        arr = np.ascontiguousarray(tensors[name])
+        arr = np.ascontiguousarray(tensors[name]).reshape(np.shape(tensors[name]))  # 0-d stays 0-d
         if name in bf16:
             if arr.dtype != np.uint16:
                 raise TypeError(f"{name}: BF16 tensors are passed as their uint16 bits")

@@ -1,9 +1,10 @@
 """Weight bridge: the JAX package's flax parameters -> the port's state_dicts.
 
 The inverse of fatezero_tpu/convert/torch_to_flax.py (convert_unet_state,
-convert_vae_state, convert_clip_text_state). Each function takes a flax
-param tree as nested dicts of numpy arrays (with or without the "params"
-root) and returns a {diffusers/HF key: numpy array} state_dict:
+convert_vae_state, convert_clip_text_state, convert_clip_full_state). Each
+function takes a flax param tree as nested dicts of numpy arrays (with or
+without the "params" root) and returns a {diffusers/HF key: numpy array}
+state_dict:
 
   Dense kernel [in, out]         -> Linear weight [out, in]
   Conv kernel [kh, kw, in, out]  -> Conv2d weight [out, in, kh, kw]
@@ -115,6 +116,17 @@ def vae_state_from_flax(flax_params: Dict) -> Dict[str, np.ndarray]:
     return state
 
 
+def _clip_layer_module(parts) -> str:
+    """`layers_<i>/...` of a flax CLIP tower -> `encoder.layers.<i>...` (fc1/fc2 under `mlp`)."""
+    m = re.match(r"^layers_(\d+)$", parts[0])
+    if m is None:
+        raise KeyError(f"unknown CLIP param {'/'.join(parts)}")
+    sub = parts[1:]
+    if sub[0] in ("fc1", "fc2"):
+        sub = ["mlp", *sub]
+    return ".".join(["encoder.layers", m.group(1), *sub])
+
+
 def clip_text_state_from_flax(flax_params: Dict) -> Dict[str, np.ndarray]:
     """Flax CLIPTextModel params -> CLIPTextModel state_dict (HF names)."""
     state = {}
@@ -127,14 +139,49 @@ def clip_text_state_from_flax(flax_params: Dict) -> Dict[str, np.ndarray]:
             module = "embeddings.token_embedding"
         elif parts == ["final_layer_norm"]:
             module = "final_layer_norm"
+        elif parts == ["text_projection"]:  # the projected (evaluation) text tower
+            key, v = _leaf("text_projection", leaf, value)
+            state[key] = v
+            continue
         else:
-            m = re.match(r"^layers_(\d+)$", parts[0])
-            if m is None:
-                raise KeyError(f"unknown CLIP text param {path}")
-            sub = parts[1:]
-            if sub[0] in ("fc1", "fc2"):
-                sub = ["mlp", *sub]
-            module = ".".join(["encoder.layers", m.group(1), *sub])
+            module = _clip_layer_module(parts)
         key, v = _leaf(f"text_model.{module}", leaf, value)
         state[key] = v
     return state
+
+
+_CLIP_VISION_MODULES = {
+    "patch_embedding": "embeddings.patch_embedding",
+    "pre_layernorm": "pre_layrnorm",  # HF's own spelling of the key
+    "post_layernorm": "post_layernorm",
+}
+
+
+def clip_vision_state_from_flax(flax_params: Dict) -> Dict[str, np.ndarray]:
+    """Flax CLIPVisionModel params -> CLIPVisionModel state_dict (HF names)."""
+    state = {}
+    for path, value in _params(flax_params).items():
+        if path in ("class_embedding", "position_embedding"):
+            suffix = ".weight" if path == "position_embedding" else ""
+            state[f"vision_model.embeddings.{path}{suffix}"] = value
+            continue
+        *parts, leaf = path.split("/")
+        if parts == ["visual_projection"]:
+            key, v = _leaf("visual_projection", leaf, value)
+        elif len(parts) == 1 and parts[0] in _CLIP_VISION_MODULES:
+            key, v = _leaf(f"vision_model.{_CLIP_VISION_MODULES[parts[0]]}", leaf, value)
+        else:
+            key, v = _leaf(f"vision_model.{_clip_layer_module(parts)}", leaf, value)
+        state[key] = v
+    return state
+
+
+def clip_full_state_from_flax(flax_params: Dict) -> Dict[str, np.ndarray]:
+    """Flax CLIPModel (dual tower) params -> CLIPModel state_dict (HF names):
+    the exact inverse of fatezero_tpu/convert/torch_to_flax.py::convert_clip_full_state."""
+    tree = flax_params["params"] if "params" in flax_params else flax_params
+    return {
+        **clip_text_state_from_flax(tree["text_model"]),
+        **clip_vision_state_from_flax(tree["vision_model"]),
+        "logit_scale": np.asarray(tree["logit_scale"], np.float32),
+    }

@@ -7,10 +7,12 @@ crop -> [-1, 1]. Outputs channels-last numpy [f, h, w, 3] (the framework's
 native layout). The optional class-regularization image stream used by
 prior-preservation tuning is included.
 
-A copy of fatezero_tpu/data/dataset.py on its PIL path. The JAX package's
-C++ decode fast path (fatezero_tpu/native) is not ported: in its auto mode
-it is taken only where its output equals the PIL path's, so the clips are
-the same; `native_loader=True`, which asks for its resampling, raises.
+A copy of fatezero_tpu/data/dataset.py, with its C++ decode fast path
+(fatezero_tpu_torch/native). In the auto mode (`native_loader=None`) that
+path is taken only where its output equals the PIL path's, and the PIL path
+where the library cannot be built; `native_loader=True` asks for the C++
+resampling and raises where the library cannot be built (the JAX package
+falls back to PIL there).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ class ImageSequenceDataset:
         class_data_root: Optional[str] = None,
         class_prompt_ids=None,
         seed: int = 0,
-        native_loader: Optional[bool] = None,  # the C++ loader is not ported: True raises
+        native_loader: Optional[bool] = None,  # None=auto (exact cases only)
         **kwargs,
     ):
         self.path = path
@@ -67,8 +69,8 @@ class ImageSequenceDataset:
         self.prompt = prompt
         self.prompt_ids = prompt_ids
         self._rng = np.random.RandomState(seed)
-        if native_loader:
-            raise NotImplementedError("native_loader=True: the C++ frame loader is not ported (ROADMAP queue 1)")
+        self.native_loader = native_loader
+        self._short_side = None
 
         # class (regularization) images for prior-preservation tuning
         self.class_images_path: List[str] = []
@@ -127,9 +129,44 @@ class ImageSequenceDataset:
         frames = T.short_size_scale(frames, self.image_size)
         return T.to_tensor_range(frames)
 
+    def _native_fast_path(self, indices: List[int]):
+        """Decode+resize+crop in C++ (fatezero_tpu_torch/native) when it is
+        exactly equivalent to the Python path: no offset crop, center crop,
+        and no resample (source short side == image_size). With resampling
+        involved the filters differ slightly (area vs antialiased bilinear),
+        so that only engages when the dataset was built with
+        native_loader=True, which then raises if the library cannot be built."""
+        if self.native_loader is False:
+            return None
+        if self.crop != "center" or any(self.offset.values()):
+            return None
+        if self.native_loader is not True:  # auto mode: exact cases only
+            if self._source_short_side() != self.image_size:
+                return None
+        from fatezero_tpu_torch import native
+
+        try:
+            native.get_lib()
+        except native.NativeLoaderUnavailable:
+            if self.native_loader is True:
+                raise
+            return None
+        paths = [os.path.join(self.path, self.images[i]) for i in indices]
+        return native.load_batch(paths, self.image_size)
+
+    def _source_short_side(self) -> int:
+        if self._short_side is None:
+            from PIL import Image
+
+            with Image.open(os.path.join(self.path, self.images[0])) as im:
+                self._short_side = min(im.size)
+        return self._short_side
+
     def __getitem__(self, index: int) -> Dict:
         indices = self._frame_indices(index % self.video_len)
-        images = self.transform(self._load_frames(indices))
+        images = self._native_fast_path(indices)
+        if images is None:
+            images = self.transform(self._load_frames(indices))
         sample = {
             "images": images,  # [f, h, w, 3] in [-1, 1]
             "prompt_ids": self.prompt_ids,

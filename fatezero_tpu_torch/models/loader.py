@@ -120,7 +120,7 @@ def load_state(module: nn.Module, state: dict, device) -> nn.Module:
         raise KeyError(f"state_dict mismatch: missing {sorted(missing)[:5]}, unexpected {sorted(extra)[:5]}")
     tensors = {}
     for k, ref in own.items():
-        v = torch.from_numpy(np.ascontiguousarray(state[k]))
+        v = torch.from_numpy(np.ascontiguousarray(state[k]).reshape(np.shape(state[k])))  # 0-d stays 0-d
         if tuple(v.shape) != tuple(ref.shape):
             raise ValueError(f"shape mismatch at {k}: {tuple(v.shape)} vs {tuple(ref.shape)}")
         # a copy, so that training in place never writes into the caller's arrays
@@ -237,6 +237,17 @@ def _unet_keys(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 def _text_keys(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """The text tower's keys of an HF CLIP state_dict (its position_ids buffer dropped)."""
     return {k: v for k, v in state.items() if k.startswith("text_model.") and "position_ids" not in k}
+
+
+def clip_model_state(model_dir: str) -> Dict[str, np.ndarray]:
+    """An HF `CLIPModel` folder's weights under the port's CLIPModel names:
+    the `position_ids` buffers dropped, and `pre_layernorm` (which some
+    exports spell so) read as HF's own `pre_layrnorm`."""
+    return {
+        k.replace("vision_model.pre_layernorm.", "vision_model.pre_layrnorm."): v
+        for k, v in load_torch_state(model_dir).items()
+        if "position_ids" not in k
+    }
 
 
 def merge_checkpoint(module: nn.Module, ckpt: Dict[str, np.ndarray], seed: int, what: str) -> dict:

@@ -109,6 +109,22 @@ def test_writer_reads_bit_for_bit(tmp_path):
     assert np.array_equal(ours["f32"].view(np.uint32), x.view(np.uint32))
 
 
+def test_writer_and_loader_keep_0d_tensors(tmp_path):
+    """A 0-d tensor (CLIP's logit_scale) keeps its shape through the writer,
+    the reader and load_state (np.ascontiguousarray alone makes it 1-d)."""
+    from safetensors.numpy import load_file
+
+    from fatezero_tpu_torch.models.loader import load_state
+
+    path = str(tmp_path / "s.safetensors")
+    write_safetensors(path, {"logit_scale": np.asarray(2.5, np.float32)})
+    assert load_file(path)["logit_scale"].shape == () and read_safetensors(path)["logit_scale"].shape == ()
+    module = torch.nn.Module()
+    module.logit_scale = torch.nn.Parameter(torch.zeros(()))
+    load_state(module, read_safetensors(path), "cpu")
+    assert module.logit_scale.shape == () and module.logit_scale.item() == 2.5
+
+
 def test_jax_reads_the_ports_checkpoint(tmp_path):
     from fatezero_tpu.common.checkpoint import load_component_params
     from fatezero_tpu.models.loader import load_models as jload_models
