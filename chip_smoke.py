@@ -91,9 +91,10 @@ Phases, each synchronised and timed:
    c2. the tuning CLI, `fatezero_tpu_torch.cli.train.run`, on
       config/tune/jeep.yaml as shipped but for 8 synthetic 512x640 frames
       (the random crop runs), 3 synthetic class images (the per-step path),
-      the logdir and 4 updates with validation at step 4 (3 prompts, 50 DDIM
-      steps at strength 0.99) and checkpoints at 2 and 4; the edit CLI on
-      its checkpoint_4 with config/teaser/jeep_posche.yaml at 10 steps (the
+      the logdir and 4 updates with validation at step 4 (3 prompts,
+      VALIDATION_STEPS DDIM steps at strength 0.99, cut from 50) and
+      checkpoints at 2 and 4; the edit CLI on its checkpoint_4 with
+      config/teaser/jeep_posche.yaml at TUNED_EDIT_STEPS steps (the
       loaded UNet must equal the tuned one bit for bit); then
       config/tune/man_skate.yaml (no class data: the chunked run_steps path
       with the crop on the card), 4 updates, one checkpoint. Each
@@ -104,9 +105,10 @@ Phases, each synchronised and timed:
       trainable ones move, every artifact exists;
    c3. the streaming store through the edit CLI:
       config/low_resource_teaser/jeep_watercolor_ddim_10_steps_disk_store.yaml
-      as shipped (random:sd, synthetic 512x512 frames) and
-      config/teaser/jeep_watercolor.yaml with use_inversion_attention false
-      at 10 steps (the save/swap edit). Each `[stream]` line gives the store's
+      as shipped but for DISK_STORE_STEPS steps (random:sd, synthetic 512x512
+      frames) and config/teaser/jeep_watercolor.yaml with
+      use_inversion_attention false at SAVE_SWAP_STEPS steps (the save/swap
+      edit). Each `[stream]` line gives the store's
       bytes a step predicted from the sites' shapes and held (and pickled),
       the copy seconds, the CLI's phase seconds, peak memory and K1's
       launches against the count from the sites' shapes; for the disk store
@@ -117,10 +119,10 @@ Phases, each synchronised and timed:
    c4. the dataset x p2p-grid sweep, `fatezero_tpu_torch.cli.dataset_sweep.run`,
       on config/dataset_sweep.yaml as shipped (its grid of self_replace_steps
       0.5 and 0.9, its editing block: one replace edit, 3 steps) but for
-      random:sd in bf16 and two videos of 8 seeded 512x512 PNGs at
-      image_size 512 (the frame loader's exact case): four edits, each with
-      a `[sweep]` line (wall, phase_timings.json, capture plan, peak memory,
-      K1 against the sites' count, the frame loader that ran); the four
+      random:sd in bf16 and SWEEP_VIDEOS video of 8 seeded 512x512 PNGs at
+      image_size 512 (the frame loader's exact case): an edit per grid point,
+      each with a `[sweep]` line (wall, phase_timings.json, capture plan, peak
+      memory, K1 against the sites' count, the frame loader that ran); the
       result folders must be distinct;
    c5. the CLIP evaluation of those folders, `fatezero_tpu_torch.cli.evaluate.run`
       with an `items:` bench and a seeded random ViT-B/32, on the card and on
@@ -133,6 +135,16 @@ Phases, each synchronised and timed:
    c6. the C++ frame loader (`[native]`): bit-equal to PIL at native
       resolution where it builds; where it does not, why, and
       native_loader=True must raise;
+   c7. the edit on a (1,2,2) device mesh (`mesh_phase`, `[mesh]` lines): the
+      teaser model and controller at full width, FRAMES x RES^2, MESH_STEPS
+      steps, through fatezero_tpu_torch/scripts/dryrun_mesh.py: four gloo
+      ranks sharing the card, the trajectory and the stored edit in fp32
+      within MESH_FP32_TOL (rel_l2) of a world of one spawned the
+      same way; in bf16 each rank's K1 launches equal the unsharded count
+      from the sites' shapes (the counts reset and read in the rank around
+      each part) and its payload bytes their prediction; then the edit CLI
+      under NCCL as a world of one (mesh 1,1,1) bit-equal to the run
+      without a mesh;
    d. the flash-variants probe (fatezero_tpu_torch.scripts.bench_flash_variants),
       the path of K1b: K1, K1b and the library's attention at three edit
       shapes (192 folded rows, d 40, bf16);
@@ -199,10 +211,10 @@ CLI_TINY = os.path.join(REPO, "config", "demo_tiny.yaml")
 CLI_TEASER = os.path.join(REPO, "config", "teaser", "jeep_watercolor.yaml")
 CLI_BLEND = os.path.join(REPO, "config", "teaser", "jeep_posche_local_latent_blend.yaml")
 CLI_VIDEO_TOL = 1e-3
-# the shipped teaser configs run 50 steps; the CLI phase runs them at 20, and
-# the blend config under a 3.2 GB budget (14 of its 20 rows: a hybrid, as the
+# the shipped teaser configs run 50 steps; the CLI phase runs them at 10, and
+# the blend config under a 1.6 GB budget (7 of its 10 rows: a hybrid, as the
 # 8 GB default gives 37 of 50)
-CLI_STEPS, CLI_BLEND_BUDGET_GB = 20, 3.2
+CLI_STEPS, CLI_BLEND_BUDGET_GB = 10, 1.6
 
 KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "layer_norm.cu", "flash_fwd_bf16.cu", "flash_fwd_merged.cu")
 # one H100 SXM (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
@@ -1661,12 +1673,14 @@ TUNE_MAN = os.path.join(REPO, "config", "tune", "man_skate.yaml")
 EDIT_POSCHE = os.path.join(REPO, "config", "teaser", "jeep_posche.yaml")
 DISK_STORE = os.path.join(REPO, "config", "low_resource_teaser", "jeep_watercolor_ddim_10_steps_disk_store.yaml")
 TUNE_CLI_STEPS = 4  # config/tune/*.yaml train 1,000 steps
-TUNED_EDIT_STEPS = 10  # config/teaser/jeep_posche.yaml runs 50
+TUNED_EDIT_STEPS = 5  # config/teaser/jeep_posche.yaml runs 50
+VALIDATION_STEPS = 10  # config/tune/jeep.yaml validates at 50
 # the tiny tuning run's update, card against CPU: two CPU runs that differ only
 # in their thread count read 2.2e-4; an update never applied reads 1, one of
 # the two steps missing about 0.5
 TUNE_UPDATE_TOL = 0.02
-SAVE_SWAP_STEPS = 10  # config/teaser/jeep_watercolor.yaml runs 50
+SAVE_SWAP_STEPS = 5  # config/teaser/jeep_watercolor.yaml runs 50
+DISK_STORE_STEPS = 5  # the disk-store config runs 10
 
 
 class Recorder:
@@ -2069,7 +2083,8 @@ def train_cli_phase(kernels, reset_counts, check_plain):
         frames = write_frames(os.path.join(work, "frames"), FRAMES, (RES, 640), seed=11)
         edit_frames = write_frames(os.path.join(work, "edit_frames"), FRAMES, (RES, RES), seed=7)
         class_dir = write_frames(os.path.join(work, "class"), 3, (RES, RES), seed=12)
-        jeep = dict(train_steps=TUNE_CLI_STEPS, validation_steps=TUNE_CLI_STEPS, checkpointing_steps=2)
+        jeep = dict(train_steps=TUNE_CLI_STEPS, validation_steps=TUNE_CLI_STEPS, checkpointing_steps=2,
+                    editing_config={"num_inference_steps": VALIDATION_STEPS})
         (results["jeep"], tuned, logdir), _ = phase("train-cli jeep", lambda: train_cli_full_width(
             "jeep", TUNE_JEEP, work, frames, class_dir, jeep, kernels, reset_counts, check_plain))
         torch.cuda.empty_cache()
@@ -2272,7 +2287,8 @@ def stream_phase(kernels, reset_counts, check_plain):
     try:
         frames = write_frames(os.path.join(work, "frames"), FRAMES, (RES, RES), seed=7)
         results["disk_store"], _ = phase("stream disk_store", lambda: stream_full_width(
-            "disk_store", DISK_STORE, work, frames, {}, kernels, reset_counts, check_plain))
+            "disk_store", DISK_STORE, work, frames, {"editing_config": {"num_inference_steps": DISK_STORE_STEPS}},
+            kernels, reset_counts, check_plain))
         shutil.rmtree(os.path.join(work, "disk_store"), ignore_errors=True)
         torch.cuda.empty_cache()
         phase("stream fp32 witness", stream_fp32_witness)
@@ -2288,7 +2304,7 @@ def stream_phase(kernels, reset_counts, check_plain):
 # ------------------------------------------------------- sweep and evaluation
 SWEEP_CONFIG = os.path.join(REPO, "config", "dataset_sweep.yaml")
 BENCH_CONFIG = os.path.join(REPO, "config", "bench_clean_prompt.yaml")
-SWEEP_VIDEOS = 2
+SWEEP_VIDEOS = 1
 # card against CPU, both fp32 (matmuls and the patch product in full fp32,
 # the resize in fp32 on both): unit-norm 512-d features after 12 layers
 # differ by ~2e-7 on an H100 (PERF.md), Tem-Con by ~1e-7
@@ -2305,13 +2321,13 @@ EVAL_GAP_BAND = 1e-3
 def sweep_phase(kernels, reset_counts, check_plain):
     """config/dataset_sweep.yaml through cli.dataset_sweep.run at full SD-1.4
     width, as shipped (its p2p grid, its editing block: 3 DDIM steps, one
-    replace edit) but for random:sd in bf16 and two videos of FRAMES seeded
+    replace edit) but for random:sd in bf16 and SWEEP_VIDEOS videos of FRAMES seeded
     RES^2 PNG frames at image_size RES (the frame loader's exact case), run
     from a work directory so that the runs' result/ folders land there.
     Each run is measured alone (the sweep's call of cli.edit.test is
     wrapped): wall, phase_timings.json, the capture plan, peak memory, K1's
     launches against the sites' count and the frame loader that ran. The
-    four result folders must be distinct and hold every artifact. Returns
+    result folders must be distinct and hold every artifact. Returns
     (work dir, [run dict]); the caller removes the work dir."""
     import copy
     import shutil
@@ -2578,6 +2594,122 @@ def native_phase():
         if not np.array_equal(exact, pil):
             raise AssertionError("the native loader differs from PIL at native resolution")
         return dict(available=True, downscale_max=float(gap.max()), downscale_mean=float(gap.mean()))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ------------------------------------------------------------- device mesh
+MESH = (1, 2, 2)  # data, seq, tensor: 4 gloo ranks sharing the one card
+MESH_STEPS = 3
+# rel_l2 of the (1,2,2) fp32 run against the world of one, stated before the
+# first chip run: only the order of the sums over ranks differs (K1 and the
+# GEMMs on local rows, the halo exact); on the CPU one fp32 ulp of input moves
+# the tiny edit by ~1e-5 of its largest value and the mesh as much, and the
+# full-width UNet runs 3 + 3 steps under CFG 7.5 and a x10 reweight
+MESH_FP32_TOL = {"traj": 1e-4, "stored": 1e-3}
+# the teaser's controller (refine, reweight "watercolor" x10, cross 0.8, self 0.8)
+MESH_EDITS = {"stored": dict(is_replace_controller=False, cross_replace_steps=0.8, self_replace_steps=0.8,
+                             eq_params={"words": ["watercolor"], "values": [10]}, mode="stored")}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_phase():
+    """The edit on a (1,2,2) device mesh at full width (fatezero_tpu_torch/
+    scripts/dryrun_mesh.py): the teaser model and controller, FRAMES x RES^2,
+    MESH_STEPS steps, random:sd drawn once and saved for the ranks to read,
+    the stored edit (tests/test_torch_sharding.py holds every mode on a mesh).
+    Four gloo ranks share the card (NCCL refuses two ranks on one device);
+    fp32 against a world of one spawned the same way, then bf16 with each
+    rank's K1 launches against the unsharded count from the sites' shapes and
+    its payload predicted against held. Then the edit CLI under NCCL as a
+    world of one (mesh 1,1,1) against the same run without a mesh, bit for
+    bit."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from fatezero_tpu_torch.cli import edit as cli
+    from fatezero_tpu_torch.common.config import load_config
+    from fatezero_tpu_torch.models.unet3d import UNet3DConfig, UNetPseudo3DConditionModel
+    from fatezero_tpu_torch.models.loader import _unet_cfg_overrides
+    from fatezero_tpu_torch.scripts import dryrun_mesh as D
+
+    work = os.path.join(REPO, "build", "mesh_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        path, t_prep = phase("mesh: draw and save random:sd, embeddings, controllers", lambda: D.prepare(
+            os.path.join(work, "inputs.pt"), "random:sd", TEASER, FRAMES, RES, MESH_STEPS, seed=0, edits=MESH_EDITS))
+        sharded, t_mesh = phase(f"mesh: {MESH} gloo ranks on one card, fp32 then bf16", lambda: D.launch(
+            D.edit_job, MESH, "cuda", "gloo", args=(path, ("float32", "bfloat16")), workdir=work))
+        single, t_one = phase("mesh: world of one, fp32", lambda: D.launch(
+            D.edit_job, (1, 1, 1), "cuda", "gloo", args=(path, ("float32",)), workdir=work))
+        ref = single[0]["float32"]
+        for rank in sharded:
+            got = rank["float32"]
+            errs = {}
+            for key, a, b in [("traj", got["traj"], ref["traj"])] + [
+                    (k, got["edited"][k], ref["edited"][k]) for k in ref["edited"]]:
+                rel = float((a - b).norm() / b.norm())
+                errs[key] = dict(rel_l2=rel, max_abs=float((a - b).abs().max()), max=float(b.abs().max()),
+                                 tol=MESH_FP32_TOL[key])
+                if not (torch.isfinite(a).all() and rel <= MESH_FP32_TOL[key]):
+                    raise AssertionError(f"mesh rank {got['rank']}: {key} rel_l2 {rel} > {MESH_FP32_TOL[key]}")
+            log(f"[mesh] fp32 rank {got['rank']} {got['coords']} vs world of one: {json.dumps(errs)}; "
+                f"peak {got['peak_bytes'] / 2**30:.2f} GiB, seconds {got['seconds']:.3f}")
+        log(f"[mesh] fp32 world of one: seconds {ref['seconds']:.3f}, peak {ref['peak_bytes'] / 2**30:.2f} GiB, "
+            f"K1 {json.dumps(ref['k1_launches'])}, payload {ref['payload_held']}")
+        meta = UNetPseudo3DConditionModel(UNet3DConfig(**_unet_cfg_overrides(TEASER)), device="meta")
+        expect = {"invert": MESH_STEPS * k1_per_forward(meta, RES // 8, "capture"),
+                  "stored": MESH_STEPS * k1_per_forward(meta, RES // 8, "edit")}
+        for rank in sharded:
+            got = rank["bfloat16"]
+            log(f"[mesh] bf16 rank {got['rank']} {got['coords']}: K1 {json.dumps(got['k1_launches'])} "
+                f"(unsharded count {json.dumps(expect)}), payload predicted {got['payload_predicted']} held "
+                f"{got['payload_held']}, peak {got['peak_bytes'] / 2**30:.2f} GiB, seconds {got['seconds']:.3f} "
+                f"(four ranks share the card)")
+            if got["k1_launches"] != expect:
+                raise AssertionError(f"mesh rank {got['rank']}: K1 {got['k1_launches']}, the sites give {expect}")
+            if got["payload_predicted"] != got["payload_held"]:
+                raise AssertionError(f"mesh rank {got['rank']}: payload predicted {got['payload_predicted']}, "
+                                     f"held {got['payload_held']}")
+            if not all(torch.isfinite(v).all() for v in got["edited"].values()):
+                raise AssertionError(f"mesh rank {got['rank']}: bf16 edit not finite")
+
+        # the edit CLI under NCCL as a world of one, against the same run without a mesh
+        frames = write_frames(os.path.join(work, "frames"), FRAMES, (RES, RES), seed=7)
+        cfg = load_config(CLI_TEASER).to_dict()
+        cfg["dataset_config"]["path"] = frames
+        cfg["editing_config"]["num_inference_steps"] = MESH_STEPS
+        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        os.environ.update(env)
+        try:
+            (out_mesh, videos_mesh), t_cli = phase("mesh: edit CLI, NCCL world of one", lambda: cli.run(
+                dict(cfg, logdir=os.path.join(work, "cli_mesh")), mesh="1,1,1"))
+            backend = dist.get_backend()
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for key in env:
+                os.environ.pop(key)
+        (out_plain, videos_plain), _ = phase("mesh: edit CLI, no mesh", lambda: cli.run(
+            dict(cfg, logdir=os.path.join(work, "cli_plain"))))
+        same = len(videos_mesh) == len(videos_plain) and all(
+            np.array_equal(a, b) for a, b in zip(videos_mesh, videos_plain))
+        names_same = artifact_names(out_mesh) == artifact_names(out_plain)
+        log(f"[mesh] cli world of one ({backend}): {len(videos_mesh)} videos bit-equal to the run without a mesh: "
+            f"{same}; artifact names equal: {names_same}; {t_cli:.3f} s")
+        if backend != "nccl" or not same or not names_same:
+            raise AssertionError("the NCCL world-of-one CLI run differs from the run without a mesh")
+        log(f"[mesh] seconds: prepare {t_prep:.3f}, mesh ranks {t_mesh:.3f}, world of one {t_one:.3f}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2862,6 +2994,9 @@ def main() -> int:
     # ---- main paths c4-c6: the dataset x p2p-grid sweep, the CLIP evaluation
     # of its result folders card vs CPU, the C++ frame loader
     run_eval_paths(kernels, reset_counts, check_plain)
+
+    # ---- main path c7: the edit on a device mesh (ranks spawned on the card)
+    mesh_phase()
 
     # ---- main path d: the flash-variants probe, K1b's path. Its own check
     # runs K1b's plain version, flash_bf16_reference, which is not watched.

@@ -20,15 +20,24 @@ step (`sample`). `use_inversion_attention: false` runs the save/swap edit
 (the first prompt captures its own attention, the others edit against it),
 and generation mode (`use_invertion_latents: false`) does so from seeded
 noise, once per sample seed. It runs on the card unless the caller of `test`
-passes device="cpu". Multiple devices (`sharding`, `--mesh`) are not ported
-and raise, naming ROADMAP.md queue 1 item 7.
+passes device="cpu".
+
+On several devices, one process per device:
+
+    torchrun --nproc-per-node 4 -m fatezero_tpu_torch.cli.edit --config <yaml> --mesh 1,2,2
+
+`--mesh` (or the YAML's `sharding: {mesh: [data, seq, tensor]}`, which it
+overrides) puts the fused edit on that mesh (parallel/sharding.py): each
+rank runs on `cuda:LOCAL_RANK` with its block of frames (seq) and of heads
+(tensor); `data` replicates. Every rank agrees on rank 0's log folder, and
+only rank 0 writes there. A mesh larger than the launched processes, a frame
+or head count the mesh does not divide, and the streaming branches raise.
 """
 from __future__ import annotations
 
 import gc
 import logging
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -36,35 +45,17 @@ import torch
 
 from fatezero_tpu_torch.common.config import instantiate_from_config, load_config, save_config
 from fatezero_tpu_torch.common.image_util import save_gif_mp4_folder_type
+from fatezero_tpu_torch.common.logdir import logdir_for
 from fatezero_tpu_torch.common.profiling import PhaseTimer, trace
 from fatezero_tpu_torch.data.dataset import ImageSequenceDataset
 from fatezero_tpu_torch.models.loader import load_models
+from fatezero_tpu_torch.parallel.sharding import mesh_from_config
 from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
 from fatezero_tpu_torch.pipelines.p2p_validation_loop import P2pSampleLogger
 from fatezero_tpu_torch.pipelines.validation_loop import generation_noise
 from fatezero_tpu_torch.ptp.store import AttentionStore
 
-MULTI_DEVICE = "multiple devices are not ported yet (ROADMAP.md queue 1 item 7)"
-
-
-def _logdir_for(config_path: str, logdir: Optional[str]) -> str:
-    """`logdir`, or a new folder result/<config stem>/<timestamp>. The stamp
-    has one-second resolution, so a run that starts in the same second as
-    another of the same config gets the first free `_<n>` suffix; the folder
-    is created here, so two processes never claim the same one."""
-    if logdir:
-        return logdir
-    stem = os.path.splitext(os.path.basename(config_path))[0]
-    base = os.path.join("result", stem, time.strftime("%Y-%m-%dT%H-%M-%S"))
-    os.makedirs(os.path.dirname(base), exist_ok=True)
-    path, n = base, 0
-    while True:
-        try:
-            os.mkdir(path)
-            return path
-        except FileExistsError:
-            n += 1
-            path = f"{base}_{n}"
+MESH_TODO = "is not ported to a device mesh yet (ROADMAP.md queue 1 item 3: the trainer and the streaming store on a mesh)"
 
 
 def test(
@@ -98,21 +89,34 @@ def test(
             "attention to fuse. Set use_inversion_attention: false for "
             "save/swap-style generation editing."
         )
+    mesh = None
     if sharding:
-        raise NotImplementedError(f"sharding: {MULTI_DEVICE}")
-    logdir = _logdir_for(config, logdir)
-    os.makedirs(logdir, exist_ok=True)
+        streaming = {
+            "disk_store": disk_store,
+            "save_attention_maps": editing_config.get("save_attention_maps", False),
+            "use_inversion_attention: false (the save/swap edit)": not editing_config.get(
+                "use_inversion_attention", True),
+            "use_invertion_latents: false (generation mode)": not editing_config.get("use_invertion_latents", True),
+        }
+        for what, on in streaming.items():
+            if on:
+                raise NotImplementedError(f"{what} {MESH_TODO}")
+        mesh = mesh_from_config(sharding, device)
+        device = mesh.device
+    writer = mesh is None or mesh.rank == 0  # only rank 0 writes the run's folder
+    if writer:
+        logdir = logdir_for(config, logdir)
+        os.makedirs(logdir, exist_ok=True)
+    if mesh is not None:
+        logdir = mesh.broadcast_object(logdir)
     # every run logs to logdir/log.log
     logging.basicConfig(
         level=logging.INFO,
-        handlers=[
-            logging.StreamHandler(),
-            logging.FileHandler(os.path.join(logdir, "log.log")),
-        ],
+        handlers=[logging.StreamHandler()] + ([logging.FileHandler(os.path.join(logdir, "log.log"))] if writer else []),
         force=True,
     )
     log = logging.getLogger("fatezero_tpu_torch.edit")
-    log.info("editing run: config=%s logdir=%s device=%s", config, logdir, device)
+    log.info("editing run: config=%s logdir=%s device=%s mesh=%s", config, logdir, device, mesh)
     device = torch.device(device)
     timer = PhaseTimer(device)
 
@@ -136,11 +140,14 @@ def test(
         pipe = instantiate_from_config(test_pipeline_config, **pipeline_kwargs)
     else:
         pipe = FateZeroPipeline(**pipeline_kwargs)
+    if mesh is not None:
+        pipe.shard(mesh)
 
     dataset = ImageSequenceDataset(**dataset_config)
     video = dataset[0]["images"]  # [f, h, w, 3] in [-1, 1], numpy
     source_video = video / 2 + 0.5
-    save_gif_mp4_folder_type(source_video, os.path.join(logdir, "input.gif"))
+    if writer:
+        save_gif_mp4_folder_type(source_video, os.path.join(logdir, "input.gif"))
 
     source_prompt = editing_config.get("source_prompt", dataset_config.get("prompt", ""))
     num_steps = int(editing_config.get("num_inference_steps", 50))
@@ -164,6 +171,7 @@ def test(
             strength=editing_config.get("strength"),
             annotate=bool(editing_config.get("annotate", False)),
             use_fused_path=use_fused,
+            writer=writer,
         )
 
     # capture the controlled sites' payloads during the inversion itself
@@ -200,7 +208,7 @@ def test(
                 save_path=os.path.join(logdir, "cross_attention", "attn.gif"),
             )
 
-    with timer.phase("editing"), trace(os.path.join(logdir, "trace") if profile else None):
+    with timer.phase("editing"), trace(os.path.join(logdir, "trace") if profile and writer else None):
         if traj is None and inv_store is None:
             # generation mode: one run per sample seed from its seeded noise
             videos = []
@@ -220,8 +228,10 @@ def test(
                 stored=stored,
                 stored_row0=capture_rows[0] if (capture_rows and stored is not None) else 0,
             )
-    timer.save(os.path.join(logdir, "phase_timings.json"))
     log.info("%s", timer)
+    if not writer:
+        return logdir, videos
+    timer.save(os.path.join(logdir, "phase_timings.json"))
     save_config(
         {
             "config": config,
@@ -275,6 +285,8 @@ def _fused_inversion(pipe, logger, latents, emb_src, num_steps, use_stored, time
             try:
                 traj, stored = pipe.invert_fast(latents, emb_src, num_steps, capture=True, capture_rows=capture_rows)
             except torch.cuda.OutOfMemoryError:
+                if pipe.mesh is not None:
+                    raise  # the other ranks wait in the capture's collectives
                 log.warning(
                     "attention payload exceeds device memory at this workload; falling "
                     "back to replay rematerialization (stored_attention: false)"
@@ -292,14 +304,15 @@ def _fused_inversion(pipe, logger, latents, emb_src, num_steps, use_stored, time
 
 def run(config, mesh: Optional[str] = None, **overrides):
     """Load a YAML config (or take a dict) and run it; keyword overrides
-    replace top-level keys (e.g. logdir=..., device="cpu"). A tuned model's
+    replace top-level keys (e.g. logdir=..., device="cpu"), and `mesh`
+    (data,seq,tensor or 'auto') the `sharding:` block's mesh. A tuned model's
     folder of checkpoint_* subdirectories runs once per checkpoint
     (filtered by pretrained_epoch_list)."""
-    if mesh:
-        raise NotImplementedError(f"--mesh: {MULTI_DEVICE}")
     d = load_config(config).to_dict()
     d.setdefault("config", config if isinstance(config, str) else "config.yaml")
     d.update(overrides)
+    if mesh:
+        d["sharding"] = {**(d.get("sharding") or {}), "mesh": mesh}
     pmp = d.get("pretrained_model_path", "random:sd")
     if os.path.isdir(pmp):
         ckpts = sorted(
@@ -327,7 +340,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", type=str, default="config/demo.yaml")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="device mesh shape data,seq,tensor or 'auto' (not ported: raises)")
+                        help="device mesh data,seq,tensor or 'auto', one torchrun process per device")
     parser.add_argument("--device", type=str, default="cuda", help="torch device to run on (cuda or cpu)")
     args = parser.parse_args()
     run(args.config, mesh=args.mesh, device=args.device)

@@ -20,22 +20,22 @@ that end at every validation and checkpoint step, with the random crop taken
 on the card; otherwise each step takes the next dataset item (and its class
 image). The pipeline shares the trainer's UNet module, so validation samples
 with the weights just trained. Runs on the card unless `device="cpu"`;
-`fp16`/`bf16` mean a bf16 model on the card and fp32 on the CPU. Multiple
-devices (`sharding`, `--mesh`) raise: ROADMAP.md queue 1 item 7.
+`fp16`/`bf16` mean a bf16 model on the card and fp32 on the CPU. A device
+mesh (`sharding`, `--mesh`) raises: ROADMAP.md queue 1 item 3.
 """
 from __future__ import annotations
 
 import logging
 import os
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from fatezero_tpu_torch.cli.edit import MULTI_DEVICE
+from fatezero_tpu_torch.cli.edit import MESH_TODO
 from fatezero_tpu_torch.common.checkpoint import save_pipeline_checkpoint
 from fatezero_tpu_torch.common.config import instantiate_from_config, load_config, save_config
+from fatezero_tpu_torch.common.logdir import logdir_for
 from fatezero_tpu_torch.common.profiling import PhaseTimer
 from fatezero_tpu_torch.convert.to_flax import clip_text_state_to_flax, unet_state_to_flax, vae_state_to_flax
 from fatezero_tpu_torch.data import transform as T
@@ -105,11 +105,9 @@ def train(
 ):
     """Tune the UNet on one clip; returns (logdir, trainer state)."""
     if sharding:
-        raise NotImplementedError(f"sharding: {MULTI_DEVICE}")
+        raise NotImplementedError(f"tuning {MESH_TODO}")
     dataset_config = dict(dataset_config or {})
-    if logdir is None:
-        stem = os.path.splitext(os.path.basename(config))[0]
-        logdir = os.path.join("result", stem, time.strftime("%Y-%m-%dT%H-%M-%S"))
+    logdir = logdir_for(config, logdir)
     os.makedirs(logdir, exist_ok=True)
     logging.basicConfig(
         level=logging.INFO,
@@ -250,7 +248,7 @@ def run(config, mesh: Optional[str] = None, **overrides):
     """Load a YAML config (or take a dict) and train; keyword overrides
     replace top-level keys (e.g. logdir=..., device="cpu")."""
     if mesh:
-        raise NotImplementedError(f"--mesh: {MULTI_DEVICE}")
+        raise NotImplementedError(f"tuning {MESH_TODO}")
     d = load_config(config).to_dict()
     d.setdefault("config", config if isinstance(config, str) else "config.yaml")
     d.update(overrides)
@@ -263,7 +261,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--mesh", type=str, default=None,
-                        help="device mesh shape data,seq,tensor or 'auto' (not ported: raises)")
+                        help="device mesh data,seq,tensor or 'auto' (not ported for tuning: raises)")
     parser.add_argument("--device", type=str, default="cuda", help="torch device to run on (cuda or cpu)")
     args = parser.parse_args()
     run(args.config, mesh=args.mesh, device=args.device)

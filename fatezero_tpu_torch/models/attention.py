@@ -12,7 +12,12 @@ Attention sites run one of three paths:
 * fused: ``fused_attention`` (K1 for 256 queries or more on the GPU).
 
 Activations keep the reference layouts: [b, f, s, c] through the transformer
-and [b, f, heads, s, d] through attention.
+and [b, f, heads, s, d] through attention. Under a mesh (parallel/sharding.py)
+f is this rank's block of frames and heads its block of heads: the
+sparse-causal KV arrives through the halo (ops/video_ops.py), the temporal
+attention gathers every frame's K and V, and each output projection's
+partial products are summed over the 'tensor' axis. K1 then runs on local
+rows at the unsharded token counts and head dims.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from torch import nn
 
 from fatezero_tpu_torch.models.layers import FeedForward, FusedGroupNorm, FusedLayerNorm
 from fatezero_tpu_torch.ops.flash_attention import fused_attention
-from fatezero_tpu_torch.ops.video_ops import gather_sparse_kv, referenced_frames
+from fatezero_tpu_torch.ops.video_ops import gather_sparse_kv, local_referenced_frames
+from fatezero_tpu_torch.parallel.sharding import current_seq_mesh, global_frames, row_parallel_linear
 from fatezero_tpu_torch.ptp.context import MAX_CONTROLLED_TOKENS, AttnContext
 
 
@@ -91,16 +97,18 @@ class Attention(nn.Module):
             v = v[:, None]
 
         k_store = sparse_meta = None
-        if sparse_indices is not None and not is_cross and len(sparse_indices) > 0 and f > 1:
+        frames = global_frames(f)
+        if sparse_indices is not None and not is_cross and len(sparse_indices) > 0 and frames > 1:
             if attn_ctx is not None:
-                # store only the referenced source frames' K (['mid'] -> 1 frame);
-                # consumers re-gather with regather_headsplit_kv
-                refs = referenced_frames(f, sparse_indices)
+                # store only the referenced source frames' K (['mid'] -> 1 frame;
+                # under a seq mesh each by the rank that holds it); consumers
+                # re-gather with regather_headsplit_kv
+                refs = local_referenced_frames(frames, sparse_indices)
                 k_sel = k if refs == list(range(f)) else k[:, refs]
                 k_store = _split_heads5(k_sel, self.heads)
-                sparse_meta = (tuple(sparse_indices), f, self.heads)
-            k = gather_sparse_kv(k, sparse_indices, f)
-            v = gather_sparse_kv(v, sparse_indices, f)
+                sparse_meta = (tuple(sparse_indices), frames, self.heads)
+            k = gather_sparse_kv(k, sparse_indices, frames)
+            v = gather_sparse_kv(v, sparse_indices, frames)
 
         qh = _split_heads5(q, self.heads)  # [B, F, H, S, D]
         kh = _split_heads5(k, self.heads)  # [B, F|1, H, KV, D]
@@ -127,13 +135,14 @@ class Attention(nn.Module):
         else:
             out = fused_attention(qh, kh, vh, scale)
 
-        return self.to_out[0](_merge_heads5(out))  # [B, F, S, inner] -> proj
+        return row_parallel_linear(self.to_out[0], _merge_heads5(out))  # [B, F, S, inner] -> proj
 
 
 class TemporalAttention(nn.Module):
     """Per-pixel self-attention over frames with a zero-initialised output
     projection (identity residual at init). Input/output [b, f, d, c]; fp32
-    softmax."""
+    softmax. Under a seq mesh the local queries attend to every frame's K and
+    V, gathered over the axis."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, dtype=torch.float32, device=None):
         super().__init__()
@@ -157,10 +166,13 @@ class TemporalAttention(nn.Module):
             return t.reshape(b, f, d, self.heads, self.dim_head).float()
 
         q5, k5, v5 = heads5(self.to_q(x)), heads5(self.to_k(x)), heads5(self.to_v(x))
+        mesh = current_seq_mesh()
+        if mesh is not None and mesh.seq > 1:
+            k5, v5 = mesh.all_frames(torch.cat([k5, v5], dim=-1)).split(self.dim_head, dim=-1)
         s = torch.einsum("bfdhe,bgdhe->bdhfg", q5, k5) * scale
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bdhfg,bgdhe->bfdhe", p, v5).to(self.dtype)
-        return self.to_out[0](out.reshape(b, f, d, self.heads * self.dim_head))
+        return row_parallel_linear(self.to_out[0], out.reshape(b, f, d, self.heads * self.dim_head))
 
 
 class SpatioTemporalTransformerBlock(nn.Module):
@@ -200,7 +212,7 @@ class SpatioTemporalTransformerBlock(nn.Module):
         )
         x = x + self.attn2(self.norm2(x), context, attn_ctx=attn_ctx, place=place)
         x = x + self.ff(self.norm3(x))
-        if self.temporal_attention and f > 1:
+        if self.temporal_attention and global_frames(f) > 1:
             x = x + self.attn_temporal(self.norm_temporal(x))
         return x
 

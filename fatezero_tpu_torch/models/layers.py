@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fatezero_tpu_torch.ops.fused_norm import _ln_math, group_norm, layer_norm
+from fatezero_tpu_torch.parallel.sharding import current_seq_mesh, row_parallel_linear
 
 
 def get_timestep_embedding(
@@ -52,6 +53,9 @@ class TimestepEmbedding(nn.Module):
 
 
 class GEGLU(nn.Module):
+    """proj -> [h | gate] -> h * gelu(gate). Under tensor parallelism each rank
+    holds the same column block of both halves (parallel/sharding.py)."""
+
     def __init__(self, dim_in: int, dim_out: int, dtype=torch.float32, device=None):
         super().__init__()
         self.proj = nn.Linear(dim_in, dim_out * 2, dtype=dtype, device=device)
@@ -62,7 +66,9 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward, mult=4; `net.1` is diffusers' (parameter-free) dropout."""
+    """GEGLU feed-forward, mult=4; `net.1` is diffusers' (parameter-free) dropout.
+    `net.2` is row-split under tensor parallelism: its partial products are
+    summed over the 'tensor' axis and its bias added once."""
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32, device=None):
         super().__init__()
@@ -75,7 +81,7 @@ class FeedForward(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+        return row_parallel_linear(self.net[2], self.net[0](x))
 
 
 class FusedLayerNorm(nn.Module):
@@ -103,7 +109,9 @@ class FusedGroupNorm(nn.Module):
     """GroupNorm over [..., C] inputs; statistics per sample over everything
     past the first `batch_dims` axes (batch_dims=1 is torch's GroupNorm on a
     [B, F, H, W, C] video: statistics over frames x space; batch_dims=2 keeps
-    per-(batch, frame) statistics)."""
+    per-(batch, frame) statistics). A video's statistics over frames are
+    summed over a seq mesh's frame blocks; the VAE's 4-D images and the
+    per-frame form stay local."""
 
     def __init__(
         self,
@@ -125,5 +133,8 @@ class FusedGroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[-1]
         folded = x.reshape(*x.shape[: self.batch_dims], -1, c)
-        out = group_norm(folded, self.weight, self.bias, self.num_groups, self.eps)
+        mesh = current_seq_mesh()
+        over_frames = self.batch_dims == 1 and x.dim() == 5 and mesh is not None and mesh.seq > 1
+        out = group_norm(folded, self.weight, self.bias, self.num_groups, self.eps,
+                         stats_sum=mesh.seq_sum if over_frames else None)
         return out.reshape(x.shape).to(self.dtype)

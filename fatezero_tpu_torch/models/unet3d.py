@@ -11,6 +11,11 @@ the JAX model (down, mid, up), so capture positions line up. With
 ``torch.utils.checkpoint`` (non-reentrant), as the JAX model wraps them in
 ``nn.remat``: their activations are recomputed in the backward pass instead
 of kept. As there, only when no attention controller is attached.
+
+On a device mesh (parallel/sharding.py) the forward runs on this rank's block
+of frames with the weights `shard_unet_` kept; the layers exchange what
+crosses blocks. `tensor_shards` records the 'tensor' size the weights were
+split for, and the forward refuses any other mesh.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from fatezero_tpu_torch.models.resnet import (
     ResnetBlockPseudo3D,
     UpsamplePseudo3D,
 )
+from fatezero_tpu_torch.parallel.sharding import tensor_size
 from fatezero_tpu_torch.ptp.context import MAX_CONTROLLED_TOKENS, AttnContext
 
 
@@ -114,6 +120,7 @@ class UNetPseudo3DConditionModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.tensor_shards = 1
         kw = dict(dtype=dtype, device=device)
         ch0 = cfg.block_out_channels[0]
         temb_ch = ch0 * 4
@@ -195,6 +202,11 @@ class UNetPseudo3DConditionModel(nn.Module):
         caller reads ``attn_ctx.captured``. Where even the last up block is
         controlled, nothing is dropped."""
         cfg = self.cfg
+        if tensor_size() != self.tensor_shards:
+            raise RuntimeError(
+                f"the UNet's weights are split for tensor = {self.tensor_shards}, the mesh in scope has "
+                f"tensor = {tensor_size()} (shard_unet_ and seq_mesh_scope must name one mesh)"
+            )
         b = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:

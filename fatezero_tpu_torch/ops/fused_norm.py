@@ -97,16 +97,22 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
 
 
 def group_norm(
-    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int = 32, eps: float = 1e-5
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int = 32, eps: float = 1e-5,
+    stats_sum=None,
 ) -> torch.Tensor:
     """GroupNorm; x [..., S, C] (S = folded spatial; leading dims = samples),
-    scale/bias [C]. fp32 statistics per sample and group over S x C/groups."""
+    scale/bias [C]. fp32 statistics per sample and group over S x C/groups.
+    `stats_sum`, when given, sums the per-group sums, sums of squares and
+    counts over the other holders of the sample's S (the frame blocks of a
+    seq mesh): E[x^2] - E[x]^2 is a function of those sums alone."""
     *lead, s, c = x.shape
     xf = x.float()
     cg = c // groups
     n = s * cg
     gsum = xf.sum(dim=-2).reshape(*lead, groups, cg).sum(-1)  # [..., G]
     gsumsq = xf.square().sum(dim=-2).reshape(*lead, groups, cg).sum(-1)
+    if stats_sum is not None:
+        gsum, gsumsq, n = stats_sum(torch.stack([gsum, gsumsq, torch.full_like(gsum, n)]))
     gmean = gsum / n
     grstd = torch.rsqrt(gsumsq / n - gmean.square() + eps)
     cmean = gmean.repeat_interleave(cg, dim=-1).unsqueeze(-2)  # [..., 1, C]

@@ -1,9 +1,17 @@
 """Primitives for pseudo-3D video networks on channels-last [B, F, H, W, C] tensors.
 
-Counterpart of fatezero_tpu/ops/video_ops.py (single-device forms; the
-halo-exchange gather for frame-sharded meshes is not ported yet). The
-temporal Conv1d over frames is a sum of k frame-shifted matmuls; the
-sparse-causal frame gathers are static index lists.
+Counterpart of fatezero_tpu/ops/video_ops.py. The temporal Conv1d over
+frames is a sum of k frame-shifted matmuls; the sparse-causal frame gathers
+are static index lists.
+
+Under a mesh whose 'seq' axis splits the frames (parallel/sharding.py's
+ambient mesh) each rank holds a block of frames, and the ops that read
+across frames exchange them: the temporal conv and the sparse-causal gather's
+int offsets take their neighbours' boundary frames (the halo; zeros, or the
+clamped end frame, at the clip's ends only), an anchor frame comes from the
+rank that owns it, and whatever the halo cannot serve (a hop past the
+neighbour, a stride-2 temporal resample) gathers every frame and keeps this
+rank's block of the result.
 """
 from __future__ import annotations
 
@@ -13,10 +21,40 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fatezero_tpu_torch.parallel.sharding import current_seq_mesh, seq_mesh_scope
+
 
 def _pad_frames(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Zero-pad the frame axis (dim 1) of a 5-D tensor by `pad` on both sides."""
     return F.pad(x, (0, 0, 0, 0, 0, 0, pad, pad))
+
+
+def _seq_mesh():
+    """The ambient mesh when its 'seq' axis splits the frames, else None."""
+    mesh = current_seq_mesh()
+    return mesh if mesh is not None and mesh.seq > 1 else None
+
+
+def _whole_clip(fn, x: torch.Tensor, *args) -> torch.Tensor:
+    """fn over every frame of the clip, then this rank's block of its output:
+    the form, under a seq mesh, of the ops whose output frames do not follow
+    the blocks (a stride-2 temporal resample)."""
+    mesh = _seq_mesh()
+    full = mesh.all_frames(x)
+    with seq_mesh_scope(None):
+        out = fn(full, *args)
+    return mesh.local_frames(out)
+
+
+def _padded(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """x with `pad` frames on each side: zeros beyond the clip's ends, and
+    under a seq mesh the neighbouring ranks' frames between blocks."""
+    mesh = _seq_mesh()
+    if mesh is None or pad == 0:
+        return _pad_frames(x, pad)
+    lo, hi = mesh.neighbour_frames(x, pad, pad)
+    zeros = x.new_zeros((x.shape[0], pad, *x.shape[2:]))
+    return torch.cat([zeros if lo is None else lo, x, zeros if hi is None else hi], dim=1)
 
 
 def temporal_conv(
@@ -28,9 +66,11 @@ def temporal_conv(
     nn.Conv1d(padding=k//2)); b: [C_out] or None.
     Returns [B, F_out, H, W, C_out] with F_out = (F + 2*(k//2) - k)//stride + 1.
     """
+    if stride != 1 and _seq_mesh() is not None:
+        return _whole_clip(temporal_conv, x, w, b, stride)
     k = w.shape[0]
     pad = k // 2
-    xp = _pad_frames(x, pad)
+    xp = _padded(x, pad)
     f_out = (x.shape[1] + 2 * pad - k) // stride + 1
     out = None
     for j in range(k):
@@ -44,6 +84,8 @@ def temporal_conv(
 
 def temporal_avgpool(x: torch.Tensor, kernel: int = 3, stride: int = 2) -> torch.Tensor:
     """AvgPool1d over frames, count_include_pad=True."""
+    if _seq_mesh() is not None:
+        return _whole_clip(temporal_avgpool, x, kernel, stride)
     pad = kernel // 2
     xp = _pad_frames(x, pad)
     f_out = (x.shape[1] + 2 * pad - kernel) // stride + 1
@@ -62,6 +104,8 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 def temporal_linear_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Linear 2x upsample along frames (F.interpolate mode='linear',
     align_corners=False)."""
+    if _seq_mesh() is not None:
+        return _whole_clip(temporal_linear_upsample_2x, x)
     f = x.shape[1]
     pos = (np.arange(2 * f) + 0.5) / 2.0 - 0.5
     lo = np.clip(np.floor(pos).astype(np.int64), 0, f - 1)
@@ -106,9 +150,44 @@ def sparse_frame_indices(
 
 def gather_sparse_kv(kv: torch.Tensor, index_spec, num_frames: int) -> torch.Tensor:
     """kv [B, F, S, C] -> [B, F, len(index_spec)*S, C]: the tokens of each
-    selected source frame, concatenated along the token axis."""
-    idx_list = sparse_frame_indices(num_frames, index_spec)
-    return torch.cat([kv[:, torch.as_tensor(idx, device=kv.device)] for idx in idx_list], dim=2)
+    selected source frame, concatenated along the token axis. `num_frames` is
+    the clip's; under a seq mesh kv holds this rank's block of its frames."""
+    return torch.cat(_sparse_sources(kv, index_spec, num_frames), dim=2)
+
+
+def _sparse_sources(x: torch.Tensor, index_spec, num_frames: int) -> List[torch.Tensor]:
+    """Per index-spec entry, the source frame of each of this rank's query
+    frames: [B, f, ...] each, for x [B, f, ...] (f = num_frames without a seq
+    mesh). Under one, an int offset reads its neighbour's boundary frames
+    (clamped at the clip's ends) and an anchor the rank that owns it; an
+    offset past the neighbour gathers every frame."""
+    mesh = _seq_mesh()
+    if mesh is None:
+        return [x[:, torch.as_tensor(idx, device=x.device)] for idx in sparse_frame_indices(num_frames, index_spec)]
+    fl = x.shape[1]
+    if fl * mesh.seq != num_frames:
+        raise ValueError(f"{fl} frames a rank on a seq = {mesh.seq} mesh do not make a clip of {num_frames}")
+    p = mesh.seq_rank
+    parts = []
+    for index, idx in zip(index_spec, sparse_frame_indices(num_frames, index_spec)):
+        if isinstance(index, str):
+            parts.append(mesh.frame_at(x, int(idx[0])).expand(x.shape[0], fl, *x.shape[2:]))
+        elif abs(int(index)) > fl:  # a hop past the neighbour: every frame
+            local = torch.as_tensor(idx[p * fl : (p + 1) * fl], device=x.device)
+            parts.append(mesh.all_frames(x)[:, local])
+        elif int(index) == 0:
+            parts.append(x)
+        elif int(index) < 0:
+            m = -int(index)
+            lo, _ = mesh.neighbour_frames(x, m, 0)
+            head = x[:, :1].expand(x.shape[0], m, *x.shape[2:]) if lo is None else lo  # clamp to frame 0
+            parts.append(torch.cat([head, x[:, : fl - m]], dim=1))
+        else:
+            m = int(index)
+            _, hi = mesh.neighbour_frames(x, 0, m)
+            tail = x[:, -1:].expand(x.shape[0], m, *x.shape[2:]) if hi is None else hi  # clamp to the last
+            parts.append(torch.cat([x[:, m:], tail], dim=1))
+    return parts
 
 
 def referenced_frames(num_frames: int, index_spec) -> List[int]:
@@ -117,20 +196,32 @@ def referenced_frames(num_frames: int, index_spec) -> List[int]:
     return sorted({int(i) for arr in idx_list for i in arr})
 
 
+def local_referenced_frames(num_frames: int, index_spec) -> List[int]:
+    """The referenced frames this rank holds, as positions in its block: what
+    the sparse-causal K dedup stores here. Under a seq mesh each referenced
+    frame is stored once, by its owner (['mid'] leaves the other ranks none)."""
+    mesh = _seq_mesh()
+    refs = referenced_frames(num_frames, index_spec)
+    if mesh is None:
+        return refs
+    fl = num_frames // mesh.seq
+    lo = mesh.seq_rank * fl
+    return [g - lo for g in refs if lo <= g < lo + fl]
+
+
 def regather_headsplit_kv(
     kv_sel: torch.Tensor, index_spec, num_frames: int, heads: int
 ) -> torch.Tensor:
     """Rebuild the post-gather head-split KV from its referenced-frame subset.
 
     kv_sel: [b, n_ref, heads, S, d], the head-split per-frame KV of the frames
-    `referenced_frames` returns, in that order. Returns [b, F, heads, k*S, d],
-    identical to head-splitting gather_sparse_kv's output.
+    `local_referenced_frames` returns, in that order. Returns
+    [b, f, heads, k*S, d], identical to head-splitting gather_sparse_kv's
+    output: the stored frames are put in place in a zero K of this rank's
+    frames, and the gather (under a seq mesh, the halo) reads only them.
     """
-    refs = referenced_frames(num_frames, index_spec)
-    pos = {fi: p for p, fi in enumerate(refs)}
-    idx_list = sparse_frame_indices(num_frames, index_spec)
-    per_frame = []
-    for fi in range(num_frames):
-        parts = [kv_sel[:, pos[int(arr[fi])]] for arr in idx_list]  # [b, h, s, d]
-        per_frame.append(torch.cat(parts, dim=-2))  # [b, h, k*s, d]
-    return torch.stack(per_frame, dim=1)  # [b, F, h, k*s, d]
+    mesh = _seq_mesh()
+    f = num_frames if mesh is None else num_frames // mesh.seq
+    full = kv_sel.new_zeros((kv_sel.shape[0], f, *kv_sel.shape[2:]))
+    full[:, local_referenced_frames(num_frames, index_spec)] = kv_sel
+    return torch.cat(_sparse_sources(full, index_spec, num_frames), dim=-2)

@@ -26,9 +26,17 @@ host row per step (every controlled site materialised, as in JAX).
 
 Each JAX `lax.scan` is a Python loop over steps here, and its per-step gates
 are per-step tensors. The payload is kept in its logical layout.
+
+``shard(mesh)`` puts the pipeline on a (data, seq, tensor) device mesh
+(parallel/sharding.py; one process per device, as torchrun launches them):
+the UNet keeps this rank's heads and feed-forward columns, and every method
+runs under the mesh. `encode_video` keeps this rank's block of frames, and
+the DDIM carry, the payload, the blend masks and `decode_latents` stay on
+those frames; `gather_frames` assembles the whole clip on request.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -36,6 +44,7 @@ import torch
 
 from fatezero_tpu_torch.models.vae import VAE_SCALE
 from fatezero_tpu_torch.ops import schedule as S
+from fatezero_tpu_torch.parallel.sharding import seq_mesh_scope, shard_unet_, tensor_size, tensor_sum
 from fatezero_tpu_torch.ptp.context import EditContext, EditParams, InlineEditContext, StoreContext
 from fatezero_tpu_torch.ptp.controller import EditController
 from fatezero_tpu_torch.ptp.spatial_blend import apply_latent_blend, blend_mask
@@ -106,8 +115,20 @@ def _build_self_masks(injected: Dict[str, List], attn_alpha, attn_th, latent_hw:
     return self_masks, self_masks[max(s_set)].reshape(1, f, r_max, r_max)
 
 
+def _on_mesh(method):
+    """Run a pipeline method under the pipeline's mesh (None: one device)."""
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with seq_mesh_scope(self.mesh):
+            return method(self, *args, **kwargs)
+
+    return wrapped
+
+
 class FateZeroPipeline:
-    """Bundles the models and the schedule on one device; exposes the edit slice."""
+    """Bundles the models and the schedule on one device, or on this rank's
+    place on a device mesh (`shard`); exposes the edit slice."""
 
     def __init__(
         self,
@@ -126,6 +147,27 @@ class FateZeroPipeline:
         self.tokenizer = tokenizer
         self.schedule = schedule if schedule is not None else S.make_schedule(device=self.device)
         self.store_dtype = store_dtype
+        self.mesh = None
+
+    # ------------------------------------------------------------------ mesh
+    def shard(self, mesh) -> "FateZeroPipeline":
+        """Put the pipeline on `mesh` (parallel/sharding.Mesh): the UNet keeps
+        this rank's tensor-parallel weights (shard_unet_); the VAE and the
+        text encoder stay whole. From here on the video tensors the methods
+        take and return hold this rank's block of frames."""
+        shard_unet_(self.unet, mesh)
+        self.mesh = mesh
+        return self
+
+    def gather_frames(self, x, axis: int = 1):
+        """The whole clip of a frame-sharded tensor or numpy array, on every
+        rank (x itself without a mesh)."""
+        if self.mesh is None or self.mesh.seq == 1:
+            return x
+        if isinstance(x, np.ndarray):
+            t = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            return self.mesh.all_frames(t, axis).cpu().numpy()
+        return self.mesh.all_frames(x.to(self.device), axis)
 
     # ------------------------------------------------------------------ text
     @torch.inference_mode()
@@ -138,13 +180,20 @@ class FateZeroPipeline:
     # ------------------------------------------------------------------- vae
     @torch.inference_mode()
     def encode_video(self, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """images [f, h, w, 3] in [-1, 1] -> fp32 latents [1, f, h/8, w/8, 4] (scaled).
+        """images [f, h, w, 3] in [-1, 1] -> fp32 latents [1, f, h/8, w/8, 4] (scaled);
+        on a mesh, of this rank's block of the frames.
 
-        With a `generator` the posterior is sampled; without, its mean is used."""
+        With a `generator` the posterior is sampled (the clip's noise, drawn
+        whole); without, its mean is used."""
+        frames = images.shape[0]
+        if self.mesh is not None:
+            images = self.mesh.local_frames(images, axis=0)
         mean, logvar = self.vae.encode(images.to(self.device))
         z = mean.float()
         if generator is not None:
-            noise = torch.randn(mean.shape, generator=generator, device=generator.device)
+            noise = torch.randn((frames, *mean.shape[1:]), generator=generator, device=generator.device)
+            if self.mesh is not None:
+                noise = self.mesh.local_frames(noise, axis=0)
             z = z + torch.exp(0.5 * logvar.float()) * noise.to(z.device)
         return (z * VAE_SCALE)[None]
 
@@ -160,6 +209,7 @@ class FateZeroPipeline:
         return np.clip(video / 2.0 + 0.5, 0.0, 1.0)
 
     # ------------------------------------------------------------- streaming
+    @_on_mesh
     @torch.inference_mode()
     def invert(
         self,
@@ -191,6 +241,7 @@ class FateZeroPipeline:
             all_latents.append(lat.cpu())
         return all_latents
 
+    @_on_mesh
     @torch.inference_mode()
     def sample_fast(
         self,
@@ -213,6 +264,7 @@ class FateZeroPipeline:
             lat = S.ddim_denoise_step(self.schedule, eps, t, lat, steps)
         return lat
 
+    @_on_mesh
     @torch.inference_mode()
     def sample(
         self,
@@ -344,6 +396,7 @@ class FateZeroPipeline:
                 new_latent = apply_latent_blend(new_latent, inv_latent, lmask)
         return new_latent, ctx.captured, blend_sums, masks
 
+    @_on_mesh
     @torch.inference_mode()
     def invert_fast(
         self,
@@ -385,6 +438,7 @@ class FateZeroPipeline:
             return traj
         return traj, (_stack_steps(per_step) if per_step else None)
 
+    @_on_mesh
     def capture_payload_bytes(self, latents: torch.Tensor, num_inference_steps: int = 50) -> int:
         """Predict the payload of `invert_fast(capture=True)` in bytes without
         running the model: one forward of a storage-free copy of the UNet
@@ -393,11 +447,17 @@ class FateZeroPipeline:
         Logical bytes, with the stored layouts: per step and controlled site,
         cross probabilities [1, f, heads, s, 77] and self (q, k) as
         [1, f, s, heads*d] and [1, n_ref, s, heads*d] (n_ref, the frames
-        the sparse-causal attention reads), each in store_dtype.
+        the sparse-causal attention reads), each in store_dtype. On a mesh,
+        what this rank holds: its frames (`latents` are its block) and its
+        heads, and of the referenced K frames those in its block; the copy is
+        sharded alike and traced under the mesh, whose collectives return a
+        meta tensor unchanged.
         """
         from fatezero_tpu_torch.models.unet3d import UNetPseudo3DConditionModel
 
         meta = UNetPseudo3DConditionModel(self.unet.cfg, dtype=self.unet.dtype, device="meta")
+        if self.mesh is not None:
+            shard_unet_(meta, self.mesh)
         sctx = StoreContext(save_self_attention=False, store_dtype=self.store_dtype, self_qk=True)
         lat = torch.empty(tuple(latents.shape), dtype=torch.float32, device="meta")
         cond = torch.empty((1, 77, self.unet.cfg.cross_attention_dim), dtype=torch.float32, device="meta")
@@ -423,11 +483,15 @@ class FateZeroPipeline:
         fits, (row0, k) for a partial capture that serves edit steps [0, k)
         (the rest of the edit replays, or runs identity-gated stored steps),
         or None when not even one step fits: then the caller edits by replay.
+        On a mesh the budget is per rank, against the most any rank holds, so
+        that every rank plans alike.
         """
         steps = num_inference_steps
         strength = 1.0 if strength is None else float(strength)
         n_used = min(steps, int(steps * strength)) if strength < 1.0 else steps
         per_step = self.capture_payload_bytes(latents, 1)
+        if self.mesh is not None:
+            per_step = self.mesh.max_over_ranks(per_step)
         budget_steps = int(budget_bytes // max(1, per_step))
         if budget_steps >= steps:
             return (0, steps)
@@ -438,6 +502,7 @@ class FateZeroPipeline:
         return (row0, k)
 
     # ------------------------------------------------------------------ edit
+    @_on_mesh
     @torch.inference_mode()
     def edit_fast(
         self,
@@ -562,10 +627,11 @@ class FateZeroPipeline:
             return sctx.captured, sctx.captured_qk
 
         def viz16(ctx_maps):
-            """The live cond row's mid-resolution cross maps, mean over sites and heads."""
+            """The live cond row's mid-resolution cross maps, mean over sites and
+            heads (every rank's heads, on a mesh that splits them)."""
             maps16 = _blend_maps_16(ctx_maps, latent_hw)
-            tot = sum(m.float().sum(dim=2) for m in maps16)
-            return tot / sum(int(m.shape[2]) for m in maps16)
+            tot = tensor_sum(sum(m.float().sum(dim=2) for m in maps16))
+            return tot / (sum(int(m.shape[2]) for m in maps16) * tensor_size())
 
         latent = traj[steps - t_start].float()
         sums: Optional[List[torch.Tensor]] = None  # running sums of the live blend maps

@@ -15,6 +15,10 @@ The artifact names are the JAX package's. The edit is, as there:
   mode): the first prompt samples with an `edit_store` and captures its own
   attention, every later prompt edits against that store; a reconstruction
   prompt (the source prompt) samples without a controller.
+
+On a device mesh (the fused path) every rank edits its block of frames; the
+decoded videos, masks and attention maps are gathered over the frames, and
+only the `writer` (rank 0) writes them.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ class P2pSampleLogger:
         annotate: bool = False,
         use_fused_path: bool = True,
         save_cross_attention: bool = True,
+        writer: bool = True,
     ):
         self.editing_prompts = list(editing_prompts)
         self.logdir = logdir
@@ -63,7 +68,9 @@ class P2pSampleLogger:
         self.use_fused_path = use_fused_path
         # the per-edit cross-attention heatmap artifact (`...atten.gif`)
         self.save_cross_attention = save_cross_attention
-        os.makedirs(logdir, exist_ok=True)
+        self.writer = writer
+        if writer:
+            os.makedirs(logdir, exist_ok=True)
 
     def _controller_for(self, pipeline, idx: int, target_prompt: str):
         cfg = dict(self.p2p_config.get(idx, self.p2p_config.get(str(idx), {})) or {})
@@ -84,7 +91,7 @@ class P2pSampleLogger:
             blend_self_attention=cfg.get("blend_self_attention", False),
             use_inversion_attention=cfg.get("use_inversion_attention", self.use_inversion_attention),
             save_self_attention=cfg.get("save_self_attention", True),
-            save_path=os.path.join(self.logdir, f"prompt_{idx}"),
+            save_path=os.path.join(self.logdir, f"prompt_{idx}") if self.writer else None,
         )
 
     def max_edit_window(self, pipeline) -> int:
@@ -187,30 +194,34 @@ class P2pSampleLogger:
             ):
                 if edit_aux is None or blender is None or aux_key not in edit_aux:
                     continue
-                for step_mask in edit_aux[aux_key].float().cpu().numpy():
+                masks = pipeline.gather_frames(edit_aux[aux_key], 2)  # [steps, p, f, h, w]
+                for step_mask in masks.float().cpu().numpy():
                     blender.counter += 1
                     blender.record(step_mask, f"step{blender.counter - 1:03d}")
-            video = pipeline.decode_latents(latent)
+            video = pipeline.gather_frames(pipeline.decode_latents(latent), 0)
             tag = f"step_{step}_{idx}_{self.sample_seeds[0]}"
-            save_gif_mp4_folder_type(video, os.path.join(self.logdir, f"{tag}.gif"))
+            if self.writer:
+                save_gif_mp4_folder_type(video, os.path.join(self.logdir, f"{tag}.gif"))
             if edit_aux is not None and "cross_avg" in edit_aux:
                 # per-edit cross-attention heatmap gif, aggregated over
                 # layers, heads and steps, saved as the `...atten.gif` sibling
                 from fatezero_tpu_torch.ptp.visualization import show_cross_attention
 
-                avg = edit_aux["cross_avg"].float().cpu().numpy()  # [1, f, s, 77]
+                avg = pipeline.gather_frames(edit_aux["cross_avg"], 1).float().cpu().numpy()  # [1, f, s, 77]
                 res = int(np.sqrt(avg.shape[2]))
                 attn_video = show_cross_attention(
                     pipeline.tokenizer,
                     prompt,
                     {"up_cross": [avg[:, :, None]]},  # [1, f, 1, s, 77]
                     res=res,
-                    save_path=os.path.join(self.logdir, f"{tag}atten.gif"),
+                    save_path=os.path.join(self.logdir, f"{tag}atten.gif") if self.writer else None,
                 )
                 attn_videos.append(attn_video)
             if self.annotate:
                 video = annotate_video(video, prompt)
             videos.append(video)
+        if not self.writer:
+            return videos[1:]
         grid = concat_videos(videos, axis=2)
         save_gif_mp4_folder_type(grid, os.path.join(self.logdir, f"step_{step}.gif"))
         save_gif_mp4_folder_type(grid, os.path.join(self.logdir, "grid.gif"))

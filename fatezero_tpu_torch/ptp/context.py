@@ -393,7 +393,9 @@ class EditContext(StoreContext):
         q_inj = split_heads(q_inj, heads)
         k_inj = split_heads(k_inj, heads)
         if site_info.get("sparse_meta") is not None:
-            # the stored K is the referenced-frame subset: re-gather it
+            # the stored K is the referenced-frame subset (under a seq mesh,
+            # the part of it this rank holds): re-gather it, through the halo
+            # when the frames are split
             index_spec, f_meta, heads = site_info["sparse_meta"]
             k_inj = regather_headsplit_kv(k_inj, index_spec, f_meta, heads)
         base_out = fused_attention(q_inj.to(vh.dtype), k_inj.to(vh.dtype), v_cond, scale)

@@ -11,7 +11,9 @@ the device of the maps they are given, called per step by the pipeline:
   scheduler step inside the blend window.
 
 Maps are [p, f, heads, s, 77] with s = (latent / 4)^2; the pipeline selects
-the five maps at that resolution (fatezero_pipeline._blend_maps_16).
+the five maps at that resolution (fatezero_pipeline._blend_maps_16). Under a
+device mesh f and heads are this rank's: the mean over heads sums over the
+'tensor' axis, and everything after it is per frame, so it stays local.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fatezero_tpu_torch.parallel.sharding import tensor_size, tensor_sum
 from fatezero_tpu_torch.ptp.seq_aligner import get_word_inds
 
 MAX_WORDS = 77
@@ -41,7 +44,9 @@ def word_alpha_layers(prompts: Sequence[str], words, tokenizer) -> np.ndarray:
 
 
 def _aggregate(maps: Sequence[torch.Tensor], alpha: torch.Tensor) -> torch.Tensor:
-    """maps: list of [p, f, heads, s, 77] -> word-weighted head mean [p, f, r, r]."""
+    """maps: list of [p, f, heads, s, 77] -> word-weighted head mean [p, f, r, r].
+    Under a mesh that splits the heads the mean is the sum over every rank's
+    heads (a sum over 'tensor') divided by their count."""
     items = []
     for m in maps:
         p, f, h, s, w = m.shape
@@ -49,7 +54,10 @@ def _aggregate(maps: Sequence[torch.Tensor], alpha: torch.Tensor) -> torch.Tenso
         items.append(m.reshape(p, f, h, r, r, w))
     stacked = torch.cat(items, dim=2).float()  # [p, f, H*, r, r, 77]
     al = alpha.float()[:, None, None, None, None, :]
-    return (stacked * al).sum(-1).mean(2)
+    weighted = (stacked * al).sum(-1)
+    if tensor_size() == 1:
+        return weighted.mean(2)
+    return tensor_sum(weighted.sum(2)) / (weighted.shape[2] * tensor_size())
 
 
 def _maxpool3(x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ threshold: every map the port's masks threshold is recorded and must keep
 clear of its threshold by more than BAND, so no pixel can flip.
 
 Also: every shipped config parses to the JAX package's dict and wires its
-controllers through the port; the multi-device paths raise; a config whose
+controllers through the port; the streaming branches raise on a mesh; the
+edit CLI's out-of-memory fallback; a config whose
 pipeline target names the JAX package builds the port's class with jax never
 imported (`python -m fatezero_tpu_torch.cli.edit --config`, in a
 subprocess); the generation-mode guard; the payload budget gate (replay at
@@ -180,13 +181,55 @@ def test_generation_mode_guard():
                  device="cpu")
 
 
-@pytest.mark.parametrize("over", [{"sharding": {"mesh": "auto"}}], ids=["sharding"])
+@pytest.mark.parametrize(
+    "over",
+    [
+        {"disk_store": True},
+        {"editing_config": {"save_attention_maps": True}},
+        {"editing_config": {"use_inversion_attention": False}},
+        {"editing_config": {"use_invertion_latents": False, "use_inversion_attention": False}},
+    ],
+    ids=["sharding", "save_attention_maps", "save_swap", "generation"],
+)
 def test_unported_paths_raise(over):
-    """The multi-device paths raise before any work, naming their queue item."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        cli.test(config="x.yaml", device="cpu", **over)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli.run(DEMO, mesh="1,4,2")
+    """On a device mesh the streaming branches raise before any work, naming
+    their queue item; a mesh of more devices than processes raises without a
+    process group."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        cli.test(config="x.yaml", device="cpu", sharding={"mesh": "auto"}, **over)
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        cli.run(DEMO, mesh="1,4,2", device="cpu")
+
+
+def test_oom_fallback_replays(parity, tmp_path, monkeypatch):
+    """The capturing inversion runs out of device memory once (raised here on
+    the CPU): the run drops the payload, inverts again without capture and
+    edits by replay. It writes the artifacts of an ordinary run, and its edit
+    is a `stored_attention: false` run's."""
+    original = FPM.FateZeroPipeline.invert_fast
+    raised = []
+
+    def invert_fast(self, *args, capture=False, **kwargs):
+        if capture and not raised:
+            raised.append(True)
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (raised by the test)")
+        return original(self, *args, capture=capture, **kwargs)
+
+    monkeypatch.setattr(FPM.FateZeroPipeline, "invert_fast", invert_fast)
+    log, videos = cli.test(**_demo(parity["frames"], pretrained_model_path=parity["ckpt"],
+                                   logdir=str(tmp_path / "oom"), device="cpu"))
+    monkeypatch.setattr(FPM.FateZeroPipeline, "invert_fast", original)
+    replay = _demo(parity["frames"], pretrained_model_path=parity["ckpt"], logdir=str(tmp_path / "replay"),
+                   device="cpu")
+    replay["editing_config"]["stored_attention"] = False
+    _, replay_videos = cli.test(**replay)
+    assert raised == [True]
+    with open(os.path.join(log, "log.log")) as f:
+        assert "falling back to replay rematerialization" in f.read()
+    assert _names(log) == _names(parity["tlog"])
+    assert len(videos) == len(replay_videos) > 0
+    for a, b in zip(videos, replay_videos):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("path", WORKLOADS, ids=_rel)

@@ -19,7 +19,8 @@ from PIL import Image
 
 import test_fatezero_dataset as jsweep
 from fatezero_tpu.cli import edit as jedit
-from fatezero_tpu_torch.cli import dataset_sweep, edit
+from fatezero_tpu_torch.cli import dataset_sweep
+from fatezero_tpu_torch.common.logdir import logdir_for
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SWEEP = os.path.join(REPO, "config", "dataset_sweep.yaml")
@@ -61,11 +62,11 @@ def test_logdir_in_the_same_second(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(time, "strftime", _frozen)
     assert jedit._logdir_for("a/sweep.yaml", None) == jedit._logdir_for("a/sweep.yaml", None)
-    first, second, third = (edit._logdir_for("a/sweep.yaml", None) for _ in range(3))
+    first, second, third = (logdir_for("a/sweep.yaml", None) for _ in range(3))
     base = os.path.join("result", "sweep", STAMP)
     assert (first, second, third) == (base, f"{base}_1", f"{base}_2")
     assert all(os.path.isdir(p) for p in (first, second, third))
-    assert edit._logdir_for("a/sweep.yaml", "given") == "given"
+    assert logdir_for("a/sweep.yaml", "given") == "given"
 
 
 def test_sweep_runs_each_edit_into_its_own_folder(tmp_path, monkeypatch):

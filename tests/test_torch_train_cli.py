@@ -248,7 +248,29 @@ def test_resume_from(setup, tmp_path, monkeypatch):
 
 
 def test_multi_device_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         cli.train(config="x.yaml", sharding={"mesh": "auto"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         cli.run(TUNE, mesh="1,4,2")
+
+
+def test_runs_in_one_second_get_their_own_folders(tmp_path, monkeypatch):
+    """Without a logdir, tuning runs of one config that start in the same
+    second (the clock frozen here) each get a folder of their own: the edit
+    CLI's `logdir_for`. Each run is stopped once its folder exists."""
+    import time
+
+    strftime = time.strftime
+    monkeypatch.setattr(time, "strftime", lambda fmt, *a: "2026-01-01T00-00-00" if "%S" in fmt else strftime(fmt, *a))
+    monkeypatch.chdir(tmp_path)
+
+    def stop(*args, **kwargs):
+        raise InterruptedError
+
+    monkeypatch.setattr(cli, "load_models", stop)
+    for _ in range(3):
+        with pytest.raises(InterruptedError):
+            cli.train(config="a/tune.yaml", device="cpu")
+    base = os.path.join("result", "tune", "2026-01-01T00-00-00")
+    assert sorted(os.listdir(os.path.dirname(base))) == [os.path.basename(p) for p in (base, f"{base}_1", f"{base}_2")]
+    assert all(os.path.isfile(os.path.join(p, "log.log")) for p in (base, f"{base}_1", f"{base}_2"))
