@@ -91,9 +91,9 @@ Phases, each synchronised and timed:
    c2. the tuning CLI, `fatezero_tpu_torch.cli.train.run`, on
       config/tune/jeep.yaml as shipped but for 8 synthetic 512x640 frames
       (the random crop runs), 3 synthetic class images (the per-step path),
-      the logdir and 4 updates with validation at step 4 (3 prompts,
-      VALIDATION_STEPS DDIM steps at strength 0.99, cut from 50) and
-      checkpoints at 2 and 4; the edit CLI on its checkpoint_4 with
+      the logdir and 4 updates with validation at step 4 (its first of 3
+      prompts, VALIDATION_STEPS DDIM steps at strength 0.99, cut from 50) and
+      a checkpoint at 4; the edit CLI on its checkpoint_4 with
       config/teaser/jeep_posche.yaml at TUNED_EDIT_STEPS steps (the
       loaded UNet must equal the tuned one bit for bit); then
       config/tune/man_skate.yaml (no class data: the chunked run_steps path
@@ -113,9 +113,10 @@ Phases, each synchronised and timed:
       the copy seconds, the CLI's phase seconds, peak memory and K1's
       launches against the count from the sites' shapes; for the disk store
       also the largest difference between the streaming edit and the fused
-      path's edit on the same trajectory (bf16, informational), then an fp32
-      witness at full width: the streaming edit against the fused stored
-      edit, which must agree within one bf16 unit of the largest value;
+      path's edit on the same trajectory (bf16, informational); the fp32
+      witness at full width (the streaming edit against the fused stored
+      edit, within one bf16 unit of the largest value) runs on the mesh
+      phase's world of one (c7);
    c4. the dataset x p2p-grid sweep, `fatezero_tpu_torch.cli.dataset_sweep.run`,
       on config/dataset_sweep.yaml as shipped (its grid of self_replace_steps
       0.5 and 0.9, its editing block: one replace edit, 3 steps) but for
@@ -135,16 +136,31 @@ Phases, each synchronised and timed:
    c6. the C++ frame loader (`[native]`): bit-equal to PIL at native
       resolution where it builds; where it does not, why, and
       native_loader=True must raise;
-   c7. the edit on a (1,2,2) device mesh (`mesh_phase`, `[mesh]` lines): the
-      teaser model and controller at full width, FRAMES x RES^2, MESH_STEPS
-      steps, through fatezero_tpu_torch/scripts/dryrun_mesh.py: four gloo
-      ranks sharing the card, the trajectory and the stored edit in fp32
-      within MESH_FP32_TOL (rel_l2) of a world of one spawned the
-      same way; in bf16 each rank's K1 launches equal the unsharded count
-      from the sites' shapes (the counts reset and read in the rank around
-      each part) and its payload bytes their prediction; then the edit CLI
-      under NCCL as a world of one (mesh 1,1,1) bit-equal to the run
-      without a mesh;
+   c7. the edit, tuning and the streaming store on a (1,2,2) device mesh
+      (`mesh_phase`) at full width, FRAMES x RES^2, through
+      fatezero_tpu_torch/scripts/dryrun_mesh.py: four gloo ranks sharing the
+      card, spawned once for three jobs, against a world of one running the
+      same jobs in this process. `[mesh]`: the teaser model and controller, MESH_STEPS steps,
+      the trajectory and the stored edit in fp32 within MESH_FP32_TOL
+      (rel_l2), then in bf16 finite; in each dtype each rank's K1 launches
+      equal to the unsharded count from the sites' shapes (the counts reset
+      and read in the rank around each part) and its payload bytes to their
+      prediction. `[mesh-train]`:
+      config/tune/jeep.yaml's model, one AdamW update in fp32 within
+      MESH_TRAIN_TOL of the world of one's (loss, gradient norm, clipped
+      gradients, the update), and per rank in fp32 and bf16 K1/K2/K3 equal
+      to the unsharded count from the sites' shapes, frozen tensors
+      untouched. `[mesh-stream]`: the disk-store config's model and
+      controller, the streaming inversion and edit in fp32 within
+      MESH_STREAM_TOL, each rank's store bytes a step as predicted, the four
+      ranks' sum the world of one's, the bf16 store's prediction
+      STORE_BYTES_BF16, one pickle per rank and step, K1 per rank the
+      unsharded count; the world of one's fp32 streaming and fused edits
+      are the stream phase's fp32 witness. Then the edit CLI (teaser, FRAMES
+      frames, every prompt), its disk-store branch and the tuning CLI (jeep,
+      2 updates, a checkpoint and a validation of its first prompt), these
+      two on MESH_CLI_FRAMES frames, each under NCCL as a world of one (mesh
+      1,1,1), bit-equal to the run without a mesh;
    d. the flash-variants probe (fatezero_tpu_torch.scripts.bench_flash_variants),
       the path of K1b: K1, K1b and the library's attention at three edit
       shapes (192 folded rows, d 40, bf16);
@@ -166,6 +182,7 @@ Any failure raises and exits nonzero.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import sys
@@ -1673,14 +1690,14 @@ TUNE_MAN = os.path.join(REPO, "config", "tune", "man_skate.yaml")
 EDIT_POSCHE = os.path.join(REPO, "config", "teaser", "jeep_posche.yaml")
 DISK_STORE = os.path.join(REPO, "config", "low_resource_teaser", "jeep_watercolor_ddim_10_steps_disk_store.yaml")
 TUNE_CLI_STEPS = 4  # config/tune/*.yaml train 1,000 steps
-TUNED_EDIT_STEPS = 5  # config/teaser/jeep_posche.yaml runs 50
+TUNED_EDIT_STEPS = 3  # config/teaser/jeep_posche.yaml runs 50
 VALIDATION_STEPS = 10  # config/tune/jeep.yaml validates at 50
 # the tiny tuning run's update, card against CPU: two CPU runs that differ only
 # in their thread count read 2.2e-4; an update never applied reads 1, one of
 # the two steps missing about 0.5
 TUNE_UPDATE_TOL = 0.02
-SAVE_SWAP_STEPS = 5  # config/teaser/jeep_watercolor.yaml runs 50
-DISK_STORE_STEPS = 5  # the disk-store config runs 10
+SAVE_SWAP_STEPS = 3  # config/teaser/jeep_watercolor.yaml runs 50
+DISK_STORE_STEPS = 3  # the disk-store config runs 10
 
 
 class Recorder:
@@ -1751,7 +1768,7 @@ def tiny_train_cli_reference():
     from fatezero_tpu_torch.trainer.ddpm_trainer import DDPMTrainer
 
     def start_tensors(trainer, args, kwargs, state):  # copies: on the CPU .numpy() shares the masters
-        flat = _flatten(unet_state_to_flax(tcli._host_state(trainer.unet, state["master"])))
+        flat = _flatten(unet_state_to_flax(tcli._host_state(trainer.unet.state_dict(), state["master"])))
         return {k: v.copy() for k, v in flat.items()}
 
     work = os.path.join(REPO, "build", "train_smoke_tiny")
@@ -2069,11 +2086,13 @@ def tuned_edit(work, frames, ckpt, tuned, kernels, reset_counts, check_plain):
 
 def train_cli_phase(kernels, reset_counts, check_plain):
     """The tuning CLI at full width: config/tune/jeep.yaml (the per-step path
-    with class images, validation and two checkpoints), the edit CLI on its
+    with class images, validation and a checkpoint), the edit CLI on its
     checkpoint, then config/tune/man_skate.yaml (the chunked path)."""
     import shutil
 
     import torch
+
+    from fatezero_tpu_torch.common.config import load_config
 
     work = os.path.join(REPO, "build", "train_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -2083,19 +2102,19 @@ def train_cli_phase(kernels, reset_counts, check_plain):
         frames = write_frames(os.path.join(work, "frames"), FRAMES, (RES, 640), seed=11)
         edit_frames = write_frames(os.path.join(work, "edit_frames"), FRAMES, (RES, RES), seed=7)
         class_dir = write_frames(os.path.join(work, "class"), 3, (RES, RES), seed=12)
-        jeep = dict(train_steps=TUNE_CLI_STEPS, validation_steps=TUNE_CLI_STEPS, checkpointing_steps=2,
-                    editing_config={"num_inference_steps": VALIDATION_STEPS})
+        prompts = load_config(TUNE_JEEP).to_dict()["editing_config"]["editing_prompts"][:1]  # of 3
+        jeep = dict(train_steps=TUNE_CLI_STEPS, validation_steps=TUNE_CLI_STEPS, checkpointing_steps=TUNE_CLI_STEPS,
+                    editing_config={"num_inference_steps": VALIDATION_STEPS, "editing_prompts": prompts})
         (results["jeep"], tuned, logdir), _ = phase("train-cli jeep", lambda: train_cli_full_width(
             "jeep", TUNE_JEEP, work, frames, class_dir, jeep, kernels, reset_counts, check_plain))
         torch.cuda.empty_cache()
         ckpt = os.path.join(logdir, f"checkpoint_{TUNE_CLI_STEPS}")
-        shutil.rmtree(os.path.join(logdir, "checkpoint_2"), ignore_errors=True)  # disk: only the last is edited
         results["tuned_edit"], _ = phase("cli tuned jeep_posche", lambda: tuned_edit(
             work, edit_frames, ckpt, tuned, kernels, reset_counts, check_plain))
         del tuned
         shutil.rmtree(logdir, ignore_errors=True)
         torch.cuda.empty_cache()
-        man = dict(train_steps=TUNE_CLI_STEPS, validation_steps=0, checkpointing_steps=TUNE_CLI_STEPS)
+        man = dict(train_steps=TUNE_CLI_STEPS, validation_steps=0, checkpointing_steps=0)  # jeep's run writes one
         (results["man_skate"], _, logdir), _ = phase("train-cli man_skate", lambda: train_cli_full_width(
             "man_skate", TUNE_MAN, work, frames, None, man, kernels, reset_counts, check_plain))
         # run_steps calls step once an update, so both paths time every step
@@ -2110,24 +2129,6 @@ def train_cli_phase(kernels, reset_counts, check_plain):
 
 
 # ---------------------------------------------------------- streaming store
-def stream_bytes_per_step(unet, latents_shape, dtype):
-    """Bytes of one step of the streaming store, from the sites' shapes: a
-    forward of a storage-free copy of the UNet (meta device) with the
-    inversion's StoreContext records every stored map's shape."""
-    import torch
-
-    from fatezero_tpu_torch.models.unet3d import UNetPseudo3DConditionModel
-    from fatezero_tpu_torch.ptp.context import StoreContext
-
-    meta = UNetPseudo3DConditionModel(unet.cfg, dtype=unet.dtype, device="meta")
-    ctx = StoreContext(save_self_attention=True, store_dtype=dtype)
-    lat = torch.empty(tuple(latents_shape), dtype=torch.float32, device="meta")
-    cond = torch.empty((1, 77, unet.cfg.cross_attention_dim), dtype=torch.float32, device="meta")
-    with torch.inference_mode():
-        meta(lat, 0, cond, attn_ctx=ctx)
-    return sum(m.numel() * m.element_size() for v in ctx.captured.values() for m in v)
-
-
 def stream_full_width(name, path, work, frames, overrides, kernels, reset_counts, check_plain):
     """A shipped config on the streaming store through cli.edit.run at full
     width (random:sd, bf16, synthetic 512^2 frames). Prints the `[stream]`
@@ -2169,7 +2170,7 @@ def stream_full_width(name, path, work, frames, overrides, kernels, reset_counts
     prompts = list(editing["editing_prompts"])
     pipe = (inverts or samples)[0][1][0]
     latents_shape = (1, FRAMES, RES // 8, RES // 8, 4)
-    per_step = stream_bytes_per_step(pipe.unet, latents_shape, pipe.store_dtype)
+    per_step = pipe.store_step_bytes(torch.empty(latents_shape, device="meta"))
     stores = {}
     for _, store in appends:
         stores.setdefault(id(store), store)
@@ -2223,57 +2224,6 @@ def stream_full_width(name, path, work, frames, overrides, kernels, reset_counts
     return result
 
 
-def stream_fp32_witness():
-    """The streaming edit against the fused stored edit, the disk-store
-    config's model and controller at full width in fp32 (store dtype fp32),
-    10 steps from seeded latents: invert(store=...) then sample against
-    invert_fast(capture=True) then edit_fast(stored=...). In bf16 the two
-    part (the streaming path materialises every controlled site's bf16
-    probabilities, the fused one keeps fp32 probabilities inside K1); in
-    fp32 both keep fp32 probabilities, so the edits must agree within one
-    bf16 unit of the largest value, as the edit modes' fp32 witness holds
-    replay to stored.
-    Untimed; no main path."""
-    import torch
-
-    from fatezero_tpu_torch.models.loader import load_models
-    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
-    from fatezero_tpu_torch.ptp.controller import make_controller
-    from fatezero_tpu_torch.ptp.store import AttentionStore
-
-    device = torch.device("cuda")
-    m = load_models("random:sd", TEASER, dtype=torch.float32, seed=0, device=device)
-    pipe = FateZeroPipeline(m.unet, None, m.text_encoder, m.tokenizer, m.schedule, store_dtype=torch.float32,
-                            device=device)
-    ctl = make_controller(m.tokenizer, [SOURCE, TARGET], STEPS, is_replace_controller=False,
-                          cross_replace_steps=0.8, self_replace_steps=0.8,
-                          eq_params={"words": ["watercolor"], "values": [10]})
-    gen = torch.Generator().manual_seed(5)
-    latents = torch.randn(1, FRAMES, RES // 8, RES // 8, 4, generator=gen).to(device)
-    emb_src, emb_tgt = pipe.encode_prompt(SOURCE), pipe.encode_prompt(TARGET)
-    t0 = time.perf_counter()
-    store = AttentionStore()
-    traj_host = pipe.invert(latents, emb_src, STEPS, store=store)
-    streamed = pipe.sample(traj_host[-1], emb_tgt, STEPS, controller=ctl, inv_store=store,
-                           inverted_latents=traj_host)
-    del store
-    traj, stored = pipe.invert_fast(latents, emb_src, STEPS, capture=True)
-    fused, _ = pipe.edit_fast(traj, emb_src, emb_tgt, ctl, STEPS, stored=stored)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    drift = ((traj_host[-1].to(device) - traj[-1]).norm() / traj[-1].norm()).item()
-    err = (streamed.float() - fused.float()).abs().max().item()
-    tol = 2**-7 * fused.abs().max().item()
-    finite = bool(torch.isfinite(streamed).all() and torch.isfinite(fused).all())
-    log(f"[stream] fp32 witness: streaming vs fused inversion rel_l2 at the noisiest latent {drift:.3e}; streaming "
-        f"edit vs fused stored edit max_abs_err {err:.3e} of max {fused.abs().max().item():.3e} (tol {tol:.3e}), "
-        f"finite {finite}; {seconds:.1f} s")
-    if not (err <= tol and finite):
-        raise AssertionError(f"fp32: the streaming edit disagrees with the fused stored edit ({err:.3e} > {tol:.3e})")
-    del m, pipe, traj, stored, fused, streamed, traj_host
-    torch.cuda.empty_cache()
-
-
 def stream_phase(kernels, reset_counts, check_plain):
     """The streaming store at full width: the disk-store config as shipped,
     then config/teaser/jeep_watercolor.yaml's save/swap edit."""
@@ -2291,7 +2241,6 @@ def stream_phase(kernels, reset_counts, check_plain):
             kernels, reset_counts, check_plain))
         shutil.rmtree(os.path.join(work, "disk_store"), ignore_errors=True)
         torch.cuda.empty_cache()
-        phase("stream fp32 witness", stream_fp32_witness)
         over = {"editing_config": {"use_inversion_attention": False, "num_inference_steps": SAVE_SWAP_STEPS}}
         results["save_swap"], _ = phase("stream save/swap", lambda: stream_full_width(
             "save_swap", CLI_TEASER, work, frames, over, kernels, reset_counts, check_plain))
@@ -2600,7 +2549,11 @@ def native_phase():
 
 # ------------------------------------------------------------- device mesh
 MESH = (1, 2, 2)  # data, seq, tensor: 4 gloo ranks sharing the one card
-MESH_STEPS = 3
+MESH_STEPS = 2  # the mesh edit, the streaming store and the NCCL CLI pairs (the configs run 10 or 50)
+# the clip of the NCCL world-of-one disk-store and tuning CLI pairs (the edit CLI's
+# pair runs FRAMES): each holds a run under a process group to the run without one,
+# bit for bit, and spends its seconds writing artifacts of every frame
+MESH_CLI_FRAMES = 2
 # rel_l2 of the (1,2,2) fp32 run against the world of one, stated before the
 # first chip run: only the order of the sums over ranks differs (K1 and the
 # GEMMs on local rows, the halo exact); on the CPU one fp32 ulp of input moves
@@ -2610,6 +2563,21 @@ MESH_FP32_TOL = {"traj": 1e-4, "stored": 1e-3}
 # the teaser's controller (refine, reweight "watercolor" x10, cross 0.8, self 0.8)
 MESH_EDITS = {"stored": dict(is_replace_controller=False, cross_replace_steps=0.8, self_replace_steps=0.8,
                              eq_params={"words": ["watercolor"], "values": [10]}, mode="stored")}
+# [mesh-train]: config/tune/jeep.yaml's model (lora 160, gradient checkpointing,
+# the default sparse-causal [-1, 'first'] at every width) over the teaser's
+# weights (the same tensors: the two configs differ in behaviour only), one
+# AdamW update with the temporal convs trained
+MESH_TRAIN = dict(model_config={"sparse_causal_indices": (-1, "first"), "least_sc_channel": 0}, lr=1e-3,
+                  seed=TUNE_SEED, keep_state=False)
+# fp32 (1,2,2) update against the world of one, stated before the first chip
+# run: on the CPU (random:tiny) the update differs by 3.1e-4 rel_l2, the
+# clipped gradients by 6.5e-6, the loss and the gradient norm by ~1e-7
+# (AdamW's first step turns on the last bits of gradients near its eps); a
+# gradient lost at a halo or a partial tensor sum moves the clipped gradients
+# by O(1e-1) and the update with them
+MESH_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grads": 1e-4, "update": 1e-2}
+MESH_STREAM_TOL = {"traj": 1e-4, "edited": 1e-3}  # rel_l2, as the fused edit's MESH_FP32_TOL
+STORE_BYTES_BF16 = 777_265_152  # the disk-store config's store a step, bf16, 8 x 512^2 (the sites' shapes)
 
 
 def free_port() -> int:
@@ -2620,26 +2588,269 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def nccl_world_of_one(fn):
+    """fn() with the environment torchrun gives a world of one, its process
+    group torn down after; returns (fn's result, the group's backend)."""
+    import torch.distributed as dist
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    os.environ.update(env)
+    try:
+        out = fn()
+        return out, dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in env:
+            os.environ.pop(key)
+
+
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def dict_rel_l2(a: dict, b: dict) -> float:
+    """rel_l2 of two dicts of tensors taken as one vector each."""
+    num = sum(float((a[n].double() - v.double()).square().sum()) for n, v in b.items())
+    den = sum(float(v.double().square().sum()) for v in b.values())
+    return (num / den) ** 0.5
+
+
+def mesh_edit_checks(sharded, single):
+    """[mesh]: the fused edit on the mesh, fp32 against the world of one, bf16
+    finite; K1 launches and payload per rank in each dtype."""
+    import torch
+
+    from fatezero_tpu_torch.models.loader import _unet_cfg_overrides
+    from fatezero_tpu_torch.models.unet3d import UNet3DConfig, UNetPseudo3DConditionModel
+
+    ref = single["float32"]
+    for rank in sharded:
+        got = rank["float32"]
+        errs = {}
+        for key, a, b in [("traj", got["traj"], ref["traj"])] + [
+                (k, got["edited"][k], ref["edited"][k]) for k in ref["edited"]]:
+            rel = rel_l2(a, b)
+            errs[key] = dict(rel_l2=rel, max_abs=float((a - b).abs().max()), max=float(b.abs().max()),
+                             tol=MESH_FP32_TOL[key])
+            if not (torch.isfinite(a).all() and rel <= MESH_FP32_TOL[key]):
+                raise AssertionError(f"mesh rank {got['rank']}: {key} rel_l2 {rel} > {MESH_FP32_TOL[key]}")
+        log(f"[mesh] fp32 rank {got['rank']} {got['coords']} vs world of one: {json.dumps(errs)}; "
+            f"peak {got['peak_bytes'] / 2**30:.2f} GiB, seconds {got['seconds']:.3f}")
+    log(f"[mesh] fp32 world of one: seconds {ref['seconds']:.3f}, peak {ref['peak_bytes'] / 2**30:.2f} GiB, "
+        f"K1 {json.dumps(ref['k1_launches'])}, payload {ref['payload_held']}")
+    meta = UNetPseudo3DConditionModel(UNet3DConfig(**_unet_cfg_overrides(TEASER)), device="meta")
+    expect = {"invert": MESH_STEPS * k1_per_forward(meta, RES // 8, "capture"),
+              "stored": MESH_STEPS * k1_per_forward(meta, RES // 8, "edit")}
+    for rank in sharded:
+        for dtype, tag in (("float32", "fp32"), ("bfloat16", "bf16")):
+            got = rank[dtype]
+            log(f"[mesh] {tag} rank {got['rank']} {got['coords']}: K1 {json.dumps(got['k1_launches'])} "
+                f"(unsharded count {json.dumps(expect)}), payload predicted {got['payload_predicted']} held "
+                f"{got['payload_held']}, peak {got['peak_bytes'] / 2**30:.2f} GiB, seconds {got['seconds']:.3f} "
+                f"(four ranks share the card)")
+            if got["k1_launches"] != expect:
+                raise AssertionError(f"mesh rank {got['rank']} {tag}: K1 {got['k1_launches']}, the sites give {expect}")
+            if got["payload_predicted"] != got["payload_held"]:
+                raise AssertionError(f"mesh rank {got['rank']} {tag}: payload predicted {got['payload_predicted']}, "
+                                     f"held {got['payload_held']}")
+        if not all(torch.isfinite(v).all() for v in rank["bfloat16"]["edited"].values()):
+            raise AssertionError(f"mesh rank {rank['bfloat16']['rank']}: bf16 edit not finite")
+
+
+def mesh_train_checks(sharded, single, start):
+    """[mesh-train]: one fp32 update on the mesh against the world of one's
+    (loss, gradient norm, clipped gradients, the update after - before), and
+    per rank K1/K2/K3 of the fp32 and the bf16 update against the unsharded
+    count from the sites' shapes; frozen tensors untouched."""
+    import numpy as np
+    import torch
+
+    from fatezero_tpu_torch.models.loader import _unet_cfg_overrides
+    from fatezero_tpu_torch.models.unet3d import UNet3DConfig, UNetPseudo3DConditionModel
+    from fatezero_tpu_torch.ops.flash_attention import FLASH_MIN_QUERIES
+
+    cfg = UNet3DConfig(**{**_unet_cfg_overrides(TEASER), **MESH_TRAIN["model_config"], "gradient_checkpointing": True})
+    sites = count_sites(UNetPseudo3DConditionModel(cfg, device="meta"), FLASH_MIN_QUERIES, RES // 8)
+    expect = {"K1": 2 * sites, "K2": sites, "K3": sites}  # the checkpointed forward runs twice
+    ref = single["float32"]
+    got0 = sharded[0]["float32"]
+    delta = {n: v - start[n] for n, v in ref["trainable"].items()}
+    errs = dict(
+        loss=abs(got0["loss"] - ref["loss"]) / abs(ref["loss"]),
+        grad_norm=abs(got0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+        grads=dict_rel_l2(got0["grads"], ref["grads"]),
+        update=dict_rel_l2({n: v - start[n] for n, v in got0["trainable"].items()}, delta),
+    )
+    log(f"[mesh-train] fp32 update (1,2,2) vs world of one: {json.dumps(errs)} (tol {json.dumps(MESH_TRAIN_TOL)}); "
+        f"loss {got0['loss']:.6f} vs {ref['loss']:.6f}, gradient norm {got0['grad_norm']:.6f} vs "
+        f"{ref['grad_norm']:.6f}; world of one: peak {ref['peak_bytes'] / 2**30:.2f} GiB, seconds "
+        f"{ref['seconds']:.3f}, launches {json.dumps(ref['launches'])}")
+    bad = {k: v for k, v in errs.items() if not v <= MESH_TRAIN_TOL[k]}
+    if bad or ref["launches"] != expect:
+        raise AssertionError(f"mesh-train: beyond tolerance {bad}, or the world of one launched "
+                             f"{ref['launches']} against {expect}")
+    for rank in sharded:
+        for dtype, got in rank.items():
+            log(f"[mesh-train] {dtype} rank {got['rank']} {got['coords']}: loss {got['loss']:.6f}, gradient norm "
+                f"{got['grad_norm']:.6f}, K1/K2/K3 {json.dumps(got['launches'])} (unsharded count "
+                f"{json.dumps(expect)}), frozen moved {len(got['frozen_moved'])}, peak "
+                f"{got['peak_bytes'] / 2**30:.2f} GiB, seconds {got['seconds']:.3f} (four ranks share the card)")
+            if got["launches"] != expect or got["frozen_moved"] or not np.isfinite([got["loss"], got["grad_norm"]]).all():
+                raise AssertionError(f"mesh-train rank {got['rank']} {dtype}: launches {got['launches']} against "
+                                     f"{expect}, frozen moved {got['frozen_moved'][:3]}, loss {got['loss']}")
+            if dtype == "float32" and abs(got["loss"] - ref["loss"]) > MESH_TRAIN_TOL["loss"] * abs(ref["loss"]):
+                raise AssertionError(f"mesh-train rank {got['rank']}: loss {got['loss']} against {ref['loss']}")
+        if "trainable" in rank["bfloat16"]:
+            moved = sum(not torch.equal(v, start[n].to(torch.bfloat16).float())
+                        for n, v in rank["bfloat16"]["trainable"].items())
+            if not moved:
+                raise AssertionError("mesh-train: the bf16 update moved no trainable tensor")
+
+
+def mesh_stream_checks(sharded, single, unet_cfg):
+    """[mesh-stream]: the streaming inversion and edit on the mesh, fp32
+    against the world of one; per rank the store's bytes a step predicted and
+    held, their sum the world of one's, the bf16 store a step's prediction
+    summing to STORE_BYTES_BF16, the disk store's pickles per rank, K1."""
+    import torch
+
+    from fatezero_tpu_torch.models.unet3d import UNetPseudo3DConditionModel
+    from fatezero_tpu_torch.ops import schedule as S
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+
+    ref = single["float32"]
+    meta = UNetPseudo3DConditionModel(unet_cfg, device="meta")
+    k1 = 2 * MESH_STEPS * k1_per_forward(meta, RES // 8, "stream")  # invert, then the edit
+    lat = torch.empty(1, FRAMES, RES // 8, RES // 8, 4, device="meta")
+    whole_bf16 = FateZeroPipeline(UNetPseudo3DConditionModel(unet_cfg, dtype=torch.bfloat16, device="meta"),
+                                  None, None, None, S.make_schedule(device="cpu"), device="cpu",
+                                  store_dtype=torch.bfloat16).store_step_bytes(lat)
+    pickles = [n for rank in sharded for n in rank["float32"]["pickles"]]
+    held_sum = sum(rank["float32"]["step_bytes"][0] for rank in sharded)
+    log(f"[mesh-stream] world of one fp32: bytes a step {ref['step_bytes']} (predicted "
+        f"{ref['step_bytes_predicted']}), seconds {ref['seconds']:.3f}, peak {ref['peak_bytes'] / 2**30:.2f} GiB, "
+        f"K1 {ref['launches']['K1']}; the four ranks hold {held_sum} a step; bf16 store a step predicted "
+        f"{whole_bf16} (expected {STORE_BYTES_BF16}); {len(pickles)} pickles, {len(set(pickles))} distinct")
+    if held_sum != ref["step_bytes"][0] or whole_bf16 != STORE_BYTES_BF16 or len(set(pickles)) != len(pickles):
+        raise AssertionError(f"mesh-stream: the ranks hold {held_sum} a step against the world of one's "
+                             f"{ref['step_bytes']}, bf16 {whole_bf16}, pickles {pickles}")
+    if len(pickles) != len(sharded) * MESH_STEPS or ref["launches"]["K1"] != k1:
+        raise AssertionError(f"mesh-stream: {len(pickles)} pickles, world of one K1 {ref['launches']['K1']} vs {k1}")
+    for rank in sharded:
+        got = rank["float32"]
+        errs = {key: rel_l2(got[key], ref[key]) for key in ("traj", "edited")}
+        log(f"[mesh-stream] fp32 rank {got['rank']} {got['coords']} vs world of one: rel_l2 {json.dumps(errs)} "
+            f"(tol {json.dumps(MESH_STREAM_TOL)}); bytes a step {got['step_bytes']} predicted "
+            f"{got['step_bytes_predicted']}; K1 {got['launches']['K1']} (unsharded count {k1}); peak "
+            f"{got['peak_bytes'] / 2**30:.2f} GiB, seconds {got['seconds']:.3f}")
+        if any(not (torch.isfinite(got[k]).all() and errs[k] <= MESH_STREAM_TOL[k]) for k in errs):
+            raise AssertionError(f"mesh-stream rank {got['rank']}: {errs} beyond {MESH_STREAM_TOL}")
+        if got["step_bytes"] != [got["step_bytes_predicted"]] * MESH_STEPS or got["launches"]["K1"] != k1:
+            raise AssertionError(f"mesh-stream rank {got['rank']}: bytes {got['step_bytes']} predicted "
+                                 f"{got['step_bytes_predicted']}, K1 {got['launches']['K1']} vs {k1}")
+
+
+def stream_fp32_witness(stream, edit):
+    """The streaming edit against the fused stored edit, both the world of
+    one's fp32 runs of the teaser model and controller at full width (the
+    same weights, latents and embeddings; store dtype fp32). In bf16 the two
+    part (the streaming path materialises every controlled site's bf16
+    probabilities, the fused one keeps fp32 probabilities inside K1); in
+    fp32 both keep fp32 probabilities, so the edits must agree within one
+    bf16 unit of the largest value, as the edit modes' fp32 witness holds
+    replay to stored."""
+    import torch
+
+    streamed, fused = stream["edited"], edit["edited"]["stored"]
+    drift = rel_l2(stream["traj"][-1], edit["traj"][-1])
+    err = float((streamed - fused).abs().max())
+    tol = 2**-7 * float(fused.abs().max())
+    finite = bool(torch.isfinite(streamed).all() and torch.isfinite(fused).all())
+    log(f"[stream] fp32 witness ({MESH_STEPS} steps): streaming vs fused inversion rel_l2 at the noisiest latent "
+        f"{drift:.3e}; streaming edit vs fused stored edit max_abs_err {err:.3e} of max "
+        f"{float(fused.abs().max()):.3e} (tol {tol:.3e}), finite {finite}")
+    if not (err <= tol and finite):
+        raise AssertionError(f"fp32: the streaming edit disagrees with the fused stored edit ({err:.3e} > {tol:.3e})")
+
+
+def mesh_memory(sharded, held, free, total):
+    """Log the card's memory around the ranks: what this process kept and what
+    was free before the spawn, and each job's largest reserve over the ranks
+    (each rank's caching allocator reserves at least its peak allocation)."""
+    gib = 2**-30
+    jobs = {f"{job} {dtype}": max(r[job][dtype]["reserved_bytes"] for r in sharded)
+            for job in sharded[0] for dtype in sharded[0][job]}
+    log(f"[mesh] card memory: this process held {held * gib:.2f} GiB and {free * gib:.2f} of {total * gib:.2f} "
+        f"GiB were free before the spawn; largest reserve of a rank per job (GiB) "
+        f"{json.dumps({k: round(v * gib, 2) for k, v in jobs.items()})}, four ranks at most "
+        f"{len(sharded) * max(jobs.values()) * gib:.2f} GiB")
+
+
+def cli_pair(name, run_mesh, run_plain, compare):
+    """A CLI run under NCCL as a world of one (mesh 1,1,1) against the same
+    run without a mesh: `compare(mesh_out, plain_out)` -> (equal, detail)."""
+    (out_mesh, backend), t_mesh = phase(f"mesh: {name}, NCCL world of one", lambda: nccl_world_of_one(run_mesh))
+    out_plain, t_plain = phase(f"mesh: {name}, no mesh", run_plain)
+    same, detail = compare(out_mesh, out_plain)
+    log(f"[mesh] {name} world of one ({backend}) bit-equal to the run without a mesh: {same}; {detail}; "
+        f"seconds {t_mesh:.3f} and {t_plain:.3f}")
+    if backend != "nccl" or not same:
+        raise AssertionError(f"the NCCL world-of-one {name} run differs from the run without a mesh")
+    return t_mesh + t_plain
+
+
+def edit_run(out):
+    """An edit CLI run's (artifact names, videos) from its (logdir, videos)."""
+    logdir, videos = out
+    return artifact_names(logdir), videos
+
+
+def same_edit_runs(a, b):
+    (names_a, videos_a), (names_b, videos_b) = a, b
+    same = len(videos_a) == len(videos_b) and all(np.array_equal(x, y) for x, y in zip(videos_a, videos_b))
+    names = names_a == names_b
+    return same and names, f"{len(videos_a)} videos equal {same}, artifact names equal {names}"
+
+
+def same_train_runs(a, b):
+    """Two tuning runs' folders: the same names, every checkpoint and
+    validation file byte for byte (log.log, config.yml and phase_timings.json
+    hold the folder and the seconds), the same masters."""
+    import torch
+
+    (out_a, state_a), (out_b, state_b) = a, b
+    names = artifact_names(out_a)
+    differ = [n for n in names if n not in ("log.log", "config.yml", "phase_timings.json") and
+              open(os.path.join(out_a, n), "rb").read() != open(os.path.join(out_b, n), "rb").read()]
+    masters = all(torch.equal(state_a["master"][n], m) for n, m in state_b["master"].items())
+    same = names == artifact_names(out_b) and not differ and masters
+    return same, f"{len(names)} files, differing {differ[:5]}, masters equal {masters}"
+
+
 def mesh_phase():
-    """The edit on a (1,2,2) device mesh at full width (fatezero_tpu_torch/
-    scripts/dryrun_mesh.py): the teaser model and controller, FRAMES x RES^2,
-    MESH_STEPS steps, random:sd drawn once and saved for the ranks to read,
-    the stored edit (tests/test_torch_sharding.py holds every mode on a mesh).
-    Four gloo ranks share the card (NCCL refuses two ranks on one device);
-    fp32 against a world of one spawned the same way, then bf16 with each
-    rank's K1 launches against the unsharded count from the sites' shapes and
-    its payload predicted against held. Then the edit CLI under NCCL as a
-    world of one (mesh 1,1,1) against the same run without a mesh, bit for
-    bit."""
+    """The edit, one tuning update and the streaming store on a (1,2,2) device
+    mesh at full width (fatezero_tpu_torch/scripts/dryrun_mesh.py): random:sd
+    drawn once and saved for the ranks to read, FRAMES x RES^2. Four gloo
+    ranks share the card (NCCL refuses two ranks on one device), spawned
+    once for the three jobs: the teaser's stored edit at MESH_STEPS steps in
+    fp32 and bf16 ([mesh]), one jeep-model update in fp32 and bf16
+    ([mesh-train]), and the disk-store config's streaming inversion and edit
+    in fp32, pickled per rank ([mesh-stream]); a world of one (in this
+    process) runs the fp32 jobs, whose streaming and fused edits are also
+    held to each other (the fp32 witness). tests/test_torch_sharding*.py
+    hold every mode, optimizer and branch on a mesh. Then the edit CLI
+    (FRAMES frames), its disk-store branch and the tuning CLI (MESH_CLI_FRAMES
+    frames), each under NCCL as a world of one (mesh 1,1,1) against the same
+    run without a mesh, bit for bit."""
     import shutil
 
     import torch
-    import torch.distributed as dist
 
     from fatezero_tpu_torch.cli import edit as cli
+    from fatezero_tpu_torch.cli import train as tcli
     from fatezero_tpu_torch.common.config import load_config
-    from fatezero_tpu_torch.models.unet3d import UNet3DConfig, UNetPseudo3DConditionModel
-    from fatezero_tpu_torch.models.loader import _unet_cfg_overrides
+    from fatezero_tpu_torch.parallel.sharding import Mesh
     from fatezero_tpu_torch.scripts import dryrun_mesh as D
 
     work = os.path.join(REPO, "build", "mesh_smoke")
@@ -2648,68 +2859,64 @@ def mesh_phase():
     try:
         path, t_prep = phase("mesh: draw and save random:sd, embeddings, controllers", lambda: D.prepare(
             os.path.join(work, "inputs.pt"), "random:sd", TEASER, FRAMES, RES, MESH_STEPS, seed=0, edits=MESH_EDITS))
-        sharded, t_mesh = phase(f"mesh: {MESH} gloo ranks on one card, fp32 then bf16", lambda: D.launch(
-            D.edit_job, MESH, "cuda", "gloo", args=(path, ("float32", "bfloat16")), workdir=work))
-        single, t_one = phase("mesh: world of one, fp32", lambda: D.launch(
-            D.edit_job, (1, 1, 1), "cuda", "gloo", args=(path, ("float32",)), workdir=work))
-        ref = single[0]["float32"]
-        for rank in sharded:
-            got = rank["float32"]
-            errs = {}
-            for key, a, b in [("traj", got["traj"], ref["traj"])] + [
-                    (k, got["edited"][k], ref["edited"][k]) for k in ref["edited"]]:
-                rel = float((a - b).norm() / b.norm())
-                errs[key] = dict(rel_l2=rel, max_abs=float((a - b).abs().max()), max=float(b.abs().max()),
-                                 tol=MESH_FP32_TOL[key])
-                if not (torch.isfinite(a).all() and rel <= MESH_FP32_TOL[key]):
-                    raise AssertionError(f"mesh rank {got['rank']}: {key} rel_l2 {rel} > {MESH_FP32_TOL[key]}")
-            log(f"[mesh] fp32 rank {got['rank']} {got['coords']} vs world of one: {json.dumps(errs)}; "
-                f"peak {got['peak_bytes'] / 2**30:.2f} GiB, seconds {got['seconds']:.3f}")
-        log(f"[mesh] fp32 world of one: seconds {ref['seconds']:.3f}, peak {ref['peak_bytes'] / 2**30:.2f} GiB, "
-            f"K1 {json.dumps(ref['k1_launches'])}, payload {ref['payload_held']}")
-        meta = UNetPseudo3DConditionModel(UNet3DConfig(**_unet_cfg_overrides(TEASER)), device="meta")
-        expect = {"invert": MESH_STEPS * k1_per_forward(meta, RES // 8, "capture"),
-                  "stored": MESH_STEPS * k1_per_forward(meta, RES // 8, "edit")}
-        for rank in sharded:
-            got = rank["bfloat16"]
-            log(f"[mesh] bf16 rank {got['rank']} {got['coords']}: K1 {json.dumps(got['k1_launches'])} "
-                f"(unsharded count {json.dumps(expect)}), payload predicted {got['payload_predicted']} held "
-                f"{got['payload_held']}, peak {got['peak_bytes'] / 2**30:.2f} GiB, seconds {got['seconds']:.3f} "
-                f"(four ranks share the card)")
-            if got["k1_launches"] != expect:
-                raise AssertionError(f"mesh rank {got['rank']}: K1 {got['k1_launches']}, the sites give {expect}")
-            if got["payload_predicted"] != got["payload_held"]:
-                raise AssertionError(f"mesh rank {got['rank']}: payload predicted {got['payload_predicted']}, "
-                                     f"held {got['payload_held']}")
-            if not all(torch.isfinite(v).all() for v in got["edited"].values()):
-                raise AssertionError(f"mesh rank {got['rank']}: bf16 edit not finite")
+        data = torch.load(path, weights_only=False, mmap=True)
+        unet_cfg = data["unet_cfg"]
+        fp32 = ("float32",)
+        both = ("float32", "bfloat16")
+        jobs = [("edit", D.edit_job, (path, both), {}),
+                ("train", D.train_job, (path, both), dict(MESH_TRAIN, tensors="rank0")),
+                ("stream", D.stream_job, (path, fp32), dict(disk_dir=os.path.join(work, "pickles"),
+                                                          keep_average=False))]
+        # the four ranks need the card to themselves: this process gives back
+        # what its earlier paths cached
+        gc.collect()
+        torch.cuda.empty_cache()
+        held, (free, total) = torch.cuda.memory_reserved(), torch.cuda.mem_get_info()
+        sharded, t_mesh = phase(f"mesh: {MESH} gloo ranks on one card: edit, train, stream", lambda: D.launch(
+            D.jobs, MESH, "cuda", "gloo", args=(jobs,), workdir=work))
+        mesh_memory(sharded, held, free, total)
+        shutil.rmtree(os.path.join(work, "pickles"), ignore_errors=True)
+        jobs = [("edit", D.edit_job, (path, fp32), {}), ("train", D.train_job, (path, fp32), MESH_TRAIN),
+                ("stream", D.stream_job, (path, fp32), dict(keep_average=False))]
+        single, t_one = phase("mesh: world of one, fp32: edit, train, stream", lambda: D.jobs(
+            Mesh((1, 1, 1), "cuda"), jobs))
+        mesh_edit_checks([r["edit"] for r in sharded], single["edit"])
+        start = {n: data["unet"][n].float() for n in single["train"]["float32"]["trainable"]}
+        mesh_train_checks([r["train"] for r in sharded], single["train"], start)
+        mesh_stream_checks([r["stream"] for r in sharded], single["stream"], unet_cfg)
+        stream_fp32_witness(single["stream"]["float32"], single["edit"]["float32"])
+        del data, sharded, single
 
-        # the edit CLI under NCCL as a world of one, against the same run without a mesh
-        frames = write_frames(os.path.join(work, "frames"), FRAMES, (RES, RES), seed=7)
+        # the CLIs under NCCL as a world of one, against the same runs without a mesh
+        clip = write_frames(os.path.join(work, "clip"), FRAMES, (RES, RES), seed=7)
+        frames = write_frames(os.path.join(work, "frames"), MESH_CLI_FRAMES, (RES, RES), seed=7)
         cfg = load_config(CLI_TEASER).to_dict()
-        cfg["dataset_config"]["path"] = frames
+        cfg["dataset_config"]["path"] = clip
         cfg["editing_config"]["num_inference_steps"] = MESH_STEPS
-        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
-        os.environ.update(env)
-        try:
-            (out_mesh, videos_mesh), t_cli = phase("mesh: edit CLI, NCCL world of one", lambda: cli.run(
-                dict(cfg, logdir=os.path.join(work, "cli_mesh")), mesh="1,1,1"))
-            backend = dist.get_backend()
-        finally:
-            if dist.is_initialized():
-                dist.destroy_process_group()
-            for key in env:
-                os.environ.pop(key)
-        (out_plain, videos_plain), _ = phase("mesh: edit CLI, no mesh", lambda: cli.run(
-            dict(cfg, logdir=os.path.join(work, "cli_plain"))))
-        same = len(videos_mesh) == len(videos_plain) and all(
-            np.array_equal(a, b) for a, b in zip(videos_mesh, videos_plain))
-        names_same = artifact_names(out_mesh) == artifact_names(out_plain)
-        log(f"[mesh] cli world of one ({backend}): {len(videos_mesh)} videos bit-equal to the run without a mesh: "
-            f"{same}; artifact names equal: {names_same}; {t_cli:.3f} s")
-        if backend != "nccl" or not same or not names_same:
-            raise AssertionError("the NCCL world-of-one CLI run differs from the run without a mesh")
-        log(f"[mesh] seconds: prepare {t_prep:.3f}, mesh ranks {t_mesh:.3f}, world of one {t_one:.3f}")
+        t_cli = cli_pair("edit CLI", lambda: edit_run(cli.run(dict(cfg, logdir=os.path.join(work, "cli_mesh")),
+                                                              mesh="1,1,1")),
+                         lambda: edit_run(cli.run(dict(cfg, logdir=os.path.join(work, "cli_plain")))), same_edit_runs)
+        dcfg = load_config(DISK_STORE).to_dict()
+        dcfg["dataset_config"].update(path=frames, n_sample_frame=MESH_CLI_FRAMES)
+        dcfg["editing_config"]["num_inference_steps"] = MESH_STEPS
+        t_disk = cli_pair("edit CLI disk_store", lambda: edit_run(cli.run(
+            dict(dcfg, logdir=os.path.join(work, "disk_mesh")), mesh="1,1,1")),
+                          lambda: edit_run(cli.run(dict(dcfg, logdir=os.path.join(work, "disk_plain")))), same_edit_runs)
+        shutil.rmtree(os.path.join(work, "disk_mesh"), ignore_errors=True)
+        shutil.rmtree(os.path.join(work, "disk_plain"), ignore_errors=True)
+        tcfg = load_config(TUNE_JEEP).to_dict()
+        tcfg["dataset_config"].update(path=frames, n_sample_frame=MESH_CLI_FRAMES)
+        tcfg["dataset_config"].pop("class_data_root")  # the chunked path (the per-step one runs in [train-cli])
+        tcfg.update(config=TUNE_JEEP, train_steps=MESH_STEPS, checkpointing_steps=MESH_STEPS,
+                    validation_steps=MESH_STEPS)
+        tcfg["editing_config"]["editing_prompts"] = tcfg["editing_config"]["editing_prompts"][:1]
+        tcfg["validation_sample_logger_config"] = dict(tcfg.get("validation_sample_logger_config") or {},
+                                                       num_inference_steps=MESH_STEPS)
+        t_train = cli_pair("tuning CLI", lambda: tcli.run(dict(tcfg, logdir=os.path.join(work, "train_mesh")),
+                                                          mesh="1,1,1"),
+                           lambda: tcli.run(dict(tcfg, logdir=os.path.join(work, "train_plain"))), same_train_runs)
+        log(f"[mesh] seconds: prepare {t_prep:.3f}, mesh ranks {t_mesh:.3f}, world of one {t_one:.3f}, "
+            f"edit CLI pair {t_cli:.3f}, disk-store CLI pair {t_disk:.3f}, tuning CLI pair {t_train:.3f}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

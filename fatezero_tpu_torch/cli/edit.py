@@ -27,11 +27,13 @@ On several devices, one process per device:
     torchrun --nproc-per-node 4 -m fatezero_tpu_torch.cli.edit --config <yaml> --mesh 1,2,2
 
 `--mesh` (or the YAML's `sharding: {mesh: [data, seq, tensor]}`, which it
-overrides) puts the fused edit on that mesh (parallel/sharding.py): each
-rank runs on `cuda:LOCAL_RANK` with its block of frames (seq) and of heads
-(tensor); `data` replicates. Every rank agrees on rank 0's log folder, and
-only rank 0 writes there. A mesh larger than the launched processes, a frame
-or head count the mesh does not divide, and the streaming branches raise.
+overrides) puts the edit on that mesh (parallel/sharding.py): each rank runs
+on `cuda:LOCAL_RANK` with its block of frames (seq) and of heads (tensor);
+`data` replicates. Every rank agrees on rank 0's log folder, and only rank 0
+writes there, but for the streaming store's pickles: with `disk_store` each
+rank pickles its own maps, `{step:03d}.rank{rank}.pkl`. The streaming
+branches run there as on one device. A mesh larger than the launched
+processes, and a frame or head count the mesh does not divide, raise.
 """
 from __future__ import annotations
 
@@ -53,9 +55,7 @@ from fatezero_tpu_torch.parallel.sharding import mesh_from_config
 from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
 from fatezero_tpu_torch.pipelines.p2p_validation_loop import P2pSampleLogger
 from fatezero_tpu_torch.pipelines.validation_loop import generation_noise
-from fatezero_tpu_torch.ptp.store import AttentionStore
-
-MESH_TODO = "is not ported to a device mesh yet (ROADMAP.md queue 1 item 3: the trainer and the streaming store on a mesh)"
+from fatezero_tpu_torch.ptp.store import CROSS_KEYS, AttentionStore
 
 
 def test(
@@ -91,16 +91,6 @@ def test(
         )
     mesh = None
     if sharding:
-        streaming = {
-            "disk_store": disk_store,
-            "save_attention_maps": editing_config.get("save_attention_maps", False),
-            "use_inversion_attention: false (the save/swap edit)": not editing_config.get(
-                "use_inversion_attention", True),
-            "use_invertion_latents: false (generation mode)": not editing_config.get("use_invertion_latents", True),
-        }
-        for what, on in streaming.items():
-            if on:
-                raise NotImplementedError(f"{what} {MESH_TODO}")
         mesh = mesh_from_config(sharding, device)
         device = mesh.device
     writer = mesh is None or mesh.rank == 0  # only rank 0 writes the run's folder
@@ -189,7 +179,7 @@ def test(
             traj, stored, capture_rows = _fused_inversion(pipe, make_logger(), latents, emb_src, num_steps,
                                                           use_stored, timer, log, on_card)
         else:
-            inv_store = AttentionStore(disk_store=disk_store, store_dir=logdir)
+            inv_store = AttentionStore(disk_store=disk_store, store_dir=logdir, mesh=mesh)
             with timer.phase("inversion"):
                 traj_host = pipe.invert(latents, emb_src, num_steps, store=inv_store)
             log.info(
@@ -200,20 +190,25 @@ def test(
             # the inversion's average cross attention, drawn per token
             from fatezero_tpu_torch.ptp.visualization import show_cross_attention
 
-            show_cross_attention(
-                pipe.tokenizer,
-                source_prompt,
-                {k: [m.numpy() for m in v] for k, v in inv_store.get_average_attention().items()},
-                res=int(latents.shape[2]) // 4,
-                save_path=os.path.join(logdir, "cross_attention", "attn.gif"),
-            )
+            average = inv_store.get_average_attention(CROSS_KEYS)  # every rank's frames and heads
+            if writer:
+                show_cross_attention(
+                    pipe.tokenizer,
+                    source_prompt,
+                    {k: [m.numpy() for m in v] for k, v in average.items()},
+                    res=int(latents.shape[2]) // 4,
+                    save_path=os.path.join(logdir, "cross_attention", "attn.gif"),
+                )
 
     with timer.phase("editing"), trace(os.path.join(logdir, "trace") if profile and writer else None):
         if traj is None and inv_store is None:
             # generation mode: one run per sample seed from its seeded noise
             videos = []
+            frames = int(video.shape[0])
             for s in sample_seeds:
-                noise = generation_noise(s, latents.shape).to(device)
+                # the whole clip's noise, then this rank's frames
+                noise = generation_noise(s, (1, frames, *latents.shape[2:]))
+                noise = (noise if mesh is None else mesh.local_frames(noise)).to(device)
                 seed_traj = torch.stack([latents] * num_steps + [noise])
                 sub = f"seed_{s}" if len(sample_seeds) > 1 else ""
                 videos += make_logger(sub).log_sample_images(pipe, source_video, traj=seed_traj, emb_source=emb_src)

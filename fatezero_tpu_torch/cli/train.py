@@ -20,8 +20,21 @@ that end at every validation and checkpoint step, with the random crop taken
 on the card; otherwise each step takes the next dataset item (and its class
 image). The pipeline shares the trainer's UNet module, so validation samples
 with the weights just trained. Runs on the card unless `device="cpu"`;
-`fp16`/`bf16` mean a bf16 model on the card and fp32 on the CPU. A device
-mesh (`sharding`, `--mesh`) raises: ROADMAP.md queue 1 item 3.
+`fp16`/`bf16` mean a bf16 model on the card and fp32 on the CPU.
+
+On several devices, one process per device:
+
+    torchrun --nproc-per-node 4 -m fatezero_tpu_torch.cli.train --config <yaml> --mesh 1,2,2
+
+`--mesh` (or the YAML's `sharding:` block, as the edit CLI takes it) puts the
+pipeline and the trainer on that mesh (parallel/sharding.py,
+trainer/ddpm_trainer.py): each rank trains on its frames and heads, and
+validation samples on them. Every rank agrees on rank 0's run folder, and
+only rank 0 writes there; checkpoints hold the whole UNet (unshard_state)
+and the world of one's optimizer state, so a mesh run and a one-device run
+resume each other. `scale_lr` multiplies by the batch size and the number of
+hosts (torchrun's WORLD_SIZE // LOCAL_WORLD_SIZE; the JAX package's
+process_count counts hosts too).
 """
 from __future__ import annotations
 
@@ -32,7 +45,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fatezero_tpu_torch.cli.edit import MESH_TODO
 from fatezero_tpu_torch.common.checkpoint import save_pipeline_checkpoint
 from fatezero_tpu_torch.common.config import instantiate_from_config, load_config, save_config
 from fatezero_tpu_torch.common.logdir import logdir_for
@@ -41,29 +53,34 @@ from fatezero_tpu_torch.convert.to_flax import clip_text_state_to_flax, unet_sta
 from fatezero_tpu_torch.data import transform as T
 from fatezero_tpu_torch.data.dataset import ImageSequenceDataset
 from fatezero_tpu_torch.models.loader import load_models
+from fatezero_tpu_torch.parallel.sharding import mesh_from_config, unshard_state
 from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
 from fatezero_tpu_torch.trainer.ddpm_trainer import DDPMTrainer, load_training_state, save_training_state
 
 log = logging.getLogger("fatezero_tpu_torch.train")
 
 
-def _host_state(module: torch.nn.Module, master=None) -> dict:
-    """The module's weights as fp32 numpy, the trainable ones from their fp32 masters."""
+def _host_state(state: dict, master=None) -> dict:
+    """A state dict's weights as fp32 numpy, the trainable ones from their fp32 masters."""
     master = master or {}
-    return {k: (master.get(k, v)).detach().float().cpu().numpy() for k, v in module.state_dict().items()}
+    return {k: (master.get(k, v)).detach().float().cpu().numpy() for k, v in state.items()}
 
 
-def write_checkpoint(path: str, bundle, state) -> str:
+def write_checkpoint(path: str, bundle, state, mesh=None) -> Optional[str]:
     """`checkpoint_{step}`: the pipeline in the flax-native layout, then the
-    optimizer state. Returns the path."""
+    optimizer state. On a mesh every rank assembles the whole UNet and rank 0
+    alone writes. Returns the path (None on the other ranks)."""
+    unet = unshard_state(bundle.unet, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return None
     save_pipeline_checkpoint(
         path,
         bundle.unet.cfg,
-        unet_state_to_flax(_host_state(bundle.unet, state["master"])),
+        unet_state_to_flax(_host_state(unet, state["master"])),
         vae_cfg=bundle.vae.cfg,
-        vae_params=vae_state_to_flax(_host_state(bundle.vae)),
+        vae_params=vae_state_to_flax(_host_state(bundle.vae.state_dict())),
         text_cfg=bundle.text_encoder.cfg,
-        text_params=clip_text_state_to_flax(_host_state(bundle.text_encoder)),
+        text_params=clip_text_state_to_flax(_host_state(bundle.text_encoder.state_dict())),
     )
     save_training_state(path, state)
     return path
@@ -104,22 +121,28 @@ def train(
     **kwargs,
 ):
     """Tune the UNet on one clip; returns (logdir, trainer state)."""
-    if sharding:
-        raise NotImplementedError(f"tuning {MESH_TODO}")
     dataset_config = dict(dataset_config or {})
-    logdir = logdir_for(config, logdir)
-    os.makedirs(logdir, exist_ok=True)
+    mesh = None
+    if sharding:
+        mesh = mesh_from_config(sharding, device)
+        device = mesh.device
+    writer = mesh is None or mesh.rank == 0  # only rank 0 writes the run's folder
+    if writer:
+        logdir = logdir_for(config, logdir)
+        os.makedirs(logdir, exist_ok=True)
+    if mesh is not None:
+        logdir = mesh.broadcast_object(logdir)
     logging.basicConfig(
         level=logging.INFO,
-        handlers=[logging.StreamHandler(), logging.FileHandler(os.path.join(logdir, "log.log"))],
+        handlers=[logging.StreamHandler()] + ([logging.FileHandler(os.path.join(logdir, "log.log"))] if writer else []),
         force=True,
     )
-    log.info("tuning run: config=%s logdir=%s device=%s", config, logdir, device)
+    log.info("tuning run: config=%s logdir=%s device=%s mesh=%s", config, logdir, device, mesh)
     device = torch.device(device)
     timer = PhaseTimer(device)
     dtype = torch.bfloat16 if (mixed_precision in ("fp16", "bf16") and device.type == "cuda") else torch.float32
     if scale_lr:
-        learning_rate *= batch_size  # one process
+        learning_rate *= batch_size * hosts()
 
     model_config = dict(model_config or {})
     if gradient_checkpointing:
@@ -128,6 +151,8 @@ def train(
         bundle = load_models(pretrained_model_path, model_config, dtype=dtype, seed=seed, device=device)
     pipe = FateZeroPipeline(bundle.unet, bundle.vae, bundle.text_encoder, bundle.tokenizer,
                             schedule=bundle.schedule, device=device)
+    if mesh is not None:
+        pipe.shard(mesh)
 
     dataset_config.setdefault("crop", "random")
     dataset = ImageSequenceDataset(**dataset_config)
@@ -151,6 +176,8 @@ def train(
         optimizer=optimizer,
         prior_preservation=prior_preservation,
     )
+    if mesh is not None:
+        trainer_kwargs["mesh"] = mesh
     if trainer_pipeline_config and trainer_pipeline_config.get("target"):
         trainer = instantiate_from_config(trainer_pipeline_config, **trainer_kwargs)
     else:
@@ -202,28 +229,38 @@ def train(
         if validation_steps and step % validation_steps == 0:
             with timer.phase("validation"):
                 n_saved = _validate(pipe, dataset, prompt, logdir, step, editing_config=editing_config,
-                                    logger_config=validation_sample_logger_config, timer=timer)
+                                    logger_config=validation_sample_logger_config, timer=timer, writer=writer)
             log.info("validation: %d sample videos saved at step %d", n_saved, step)
 
         if checkpointing_steps and step % checkpointing_steps == 0:
             with timer.phase("checkpoint"):
-                ck = write_checkpoint(os.path.join(logdir, f"checkpoint_{step}"), bundle, state)
-            size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ck) for f in fs)
-            log.info("checkpoint written: %s (%d bytes)", ck, size)
+                ck = write_checkpoint(os.path.join(logdir, f"checkpoint_{step}"), bundle, state, mesh)
+            if writer:
+                size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ck) for f in fs)
+                log.info("checkpoint written: %s (%d bytes)", ck, size)
 
-    timer.save(os.path.join(logdir, "phase_timings.json"))
     log.info("%s", timer)
+    if not writer:
+        return logdir, state
+    timer.save(os.path.join(logdir, "phase_timings.json"))
     save_config({"config": config, "train_steps": train_steps, "logdir": logdir,
                  "final_loss": float(np.mean(losses[-10:]))},
                 os.path.join(logdir, "config.yml"))
     return logdir, state
 
 
+def hosts() -> int:
+    """The hosts of a torchrun launch (WORLD_SIZE // LOCAL_WORLD_SIZE), 1 without one."""
+    return max(1, int(os.environ.get("WORLD_SIZE", 1)) // int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
+
+
 def _validate(pipe, dataset, prompt, logdir, step, editing_config: Optional[dict] = None,
-              logger_config: Optional[dict] = None, timer: Optional[PhaseTimer] = None) -> int:
+              logger_config: Optional[dict] = None, timer: Optional[PhaseTimer] = None,
+              writer: bool = True) -> int:
     """Online re-inversion with the current UNet, then SampleLogger's prompt x
     seed sweep; the logger is built from `editing_config`, with
-    `validation_sample_logger_config` keys taking precedence."""
+    `validation_sample_logger_config` keys taking precedence. On a mesh each
+    rank samples its frames and the `writer` (rank 0) alone writes."""
     from fatezero_tpu_torch.pipelines.validation_loop import SampleLogger
 
     timer = timer or PhaseTimer(pipe.device)
@@ -232,7 +269,7 @@ def _validate(pipe, dataset, prompt, logdir, step, editing_config: Optional[dict
     lc.setdefault("editing_prompts", [prompt] + list(lc.pop("prompts", [])))
     lc.setdefault("clip_length", int(video.shape[0]))
     lc.setdefault("num_inference_steps", 10)
-    logger = SampleLogger(logdir=logdir, subdir=f"validation_{step}", **lc)
+    logger = SampleLogger(logdir=logdir, subdir=f"validation_{step}", writer=writer, **lc)
 
     traj = None
     if lc.get("use_invertion_latents", True):
@@ -246,12 +283,13 @@ def _validate(pipe, dataset, prompt, logdir, step, editing_config: Optional[dict
 
 def run(config, mesh: Optional[str] = None, **overrides):
     """Load a YAML config (or take a dict) and train; keyword overrides
-    replace top-level keys (e.g. logdir=..., device="cpu")."""
-    if mesh:
-        raise NotImplementedError(f"tuning {MESH_TODO}")
+    replace top-level keys (e.g. logdir=..., device="cpu"), and `mesh`
+    (data,seq,tensor or 'auto') the `sharding:` block's mesh."""
     d = load_config(config).to_dict()
     d.setdefault("config", config if isinstance(config, str) else "config.yaml")
     d.update(overrides)
+    if mesh:
+        d["sharding"] = {**(d.get("sharding") or {}), "mesh": mesh}
     return train(**d)
 
 
@@ -261,7 +299,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--mesh", type=str, default=None,
-                        help="device mesh data,seq,tensor or 'auto' (not ported for tuning: raises)")
+                        help="device mesh data,seq,tensor or 'auto', one torchrun process per device")
     parser.add_argument("--device", type=str, default="cuda", help="torch device to run on (cuda or cpu)")
     args = parser.parse_args()
     run(args.config, mesh=args.mesh, device=args.device)

@@ -16,8 +16,10 @@ and [b, f, heads, s, d] through attention. Under a mesh (parallel/sharding.py)
 f is this rank's block of frames and heads its block of heads: the
 sparse-causal KV arrives through the halo (ops/video_ops.py), the temporal
 attention gathers every frame's K and V, and each output projection's
-partial products are summed over the 'tensor' axis. K1 then runs on local
-rows at the unsharded token counts and head dims.
+partial products are summed over the 'tensor' axis (megatron's g; f marks
+the input of q/k/v, whose gradient it sums over the axis in tuning). K1, and
+in tuning K2 and K3, then run on local rows at the unsharded token counts and
+head dims.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from torch import nn
 from fatezero_tpu_torch.models.layers import FeedForward, FusedGroupNorm, FusedLayerNorm
 from fatezero_tpu_torch.ops.flash_attention import fused_attention
 from fatezero_tpu_torch.ops.video_ops import gather_sparse_kv, local_referenced_frames
-from fatezero_tpu_torch.parallel.sharding import current_seq_mesh, global_frames, row_parallel_linear
+from fatezero_tpu_torch.parallel.sharding import copy_to_tensor, current_seq_mesh, global_frames, row_parallel_linear
 from fatezero_tpu_torch.ptp.context import MAX_CONTROLLED_TOKENS, AttnContext
 
 
@@ -88,8 +90,9 @@ class Attention(nn.Module):
         is_cross = context is not None
         b, f = x.shape[0], x.shape[1]
 
+        x = copy_to_tensor(x)
         q = self.to_q(x)
-        kv_src = context if is_cross else x
+        kv_src = copy_to_tensor(context) if is_cross else x
         k = self.to_k(kv_src)
         v = self.to_v(kv_src)
         if is_cross:
@@ -165,6 +168,7 @@ class TemporalAttention(nn.Module):
         def heads5(t):  # [b, f, d, h*e] -> [b, f, d, h, e] fp32
             return t.reshape(b, f, d, self.heads, self.dim_head).float()
 
+        x = copy_to_tensor(x)
         q5, k5, v5 = heads5(self.to_q(x)), heads5(self.to_k(x)), heads5(self.to_v(x))
         mesh = current_seq_mesh()
         if mesh is not None and mesh.seq > 1:

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fatezero_tpu_torch.ops.fused_norm import _ln_math, group_norm, layer_norm
-from fatezero_tpu_torch.parallel.sharding import current_seq_mesh, row_parallel_linear
+from fatezero_tpu_torch.parallel.sharding import copy_to_tensor, current_seq_mesh, row_parallel_linear
 
 
 def get_timestep_embedding(
@@ -67,8 +67,9 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward, mult=4; `net.1` is diffusers' (parameter-free) dropout.
-    `net.2` is row-split under tensor parallelism: its partial products are
-    summed over the 'tensor' axis and its bias added once."""
+    Under tensor parallelism `net.0.proj` is column-split, its input marked
+    with megatron's f, and `net.2` row-split: its partial products are
+    summed over the 'tensor' axis (g) and its bias added once."""
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32, device=None):
         super().__init__()
@@ -81,7 +82,7 @@ class FeedForward(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return row_parallel_linear(self.net[2], self.net[0](x))
+        return row_parallel_linear(self.net[2], self.net[0](copy_to_tensor(x)))
 
 
 class FusedLayerNorm(nn.Module):
@@ -110,8 +111,8 @@ class FusedGroupNorm(nn.Module):
     past the first `batch_dims` axes (batch_dims=1 is torch's GroupNorm on a
     [B, F, H, W, C] video: statistics over frames x space; batch_dims=2 keeps
     per-(batch, frame) statistics). A video's statistics over frames are
-    summed over a seq mesh's frame blocks; the VAE's 4-D images and the
-    per-frame form stay local."""
+    summed over a seq mesh's frame blocks (their gradient alike, in tuning);
+    the VAE's 4-D images and the per-frame form stay local."""
 
     def __init__(
         self,

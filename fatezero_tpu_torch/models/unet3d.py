@@ -10,7 +10,10 @@ the JAX model (down, mid, up), so capture positions line up. With
 ``gradient_checkpointing`` (tuning) each down, mid and up block runs under
 ``torch.utils.checkpoint`` (non-reentrant), as the JAX model wraps them in
 ``nn.remat``: their activations are recomputed in the backward pass instead
-of kept. As there, only when no attention controller is attached.
+of kept. As there, only when no attention controller is attached. On a mesh
+the recomputation runs under the mesh of the forward (the backward may run on
+another thread, which does not see the ambient mesh) and issues the block's
+collectives again, in the forward's order on every rank.
 
 On a device mesh (parallel/sharding.py) the forward runs on this rank's block
 of frames with the weights `shard_unet_` kept; the layers exchange what
@@ -20,6 +23,7 @@ split for, and the forward refuses any other mesh.
 from __future__ import annotations
 
 import dataclasses
+import contextlib
 from typing import Optional, Tuple, Union
 
 import torch
@@ -35,7 +39,7 @@ from fatezero_tpu_torch.models.resnet import (
     ResnetBlockPseudo3D,
     UpsamplePseudo3D,
 )
-from fatezero_tpu_torch.parallel.sharding import tensor_size
+from fatezero_tpu_torch.parallel.sharding import current_seq_mesh, seq_mesh_scope, tensor_size
 from fatezero_tpu_torch.ptp.context import MAX_CONTROLLED_TOKENS, AttnContext
 
 
@@ -219,9 +223,13 @@ class UNetPseudo3DConditionModel(nn.Module):
 
         x = self.conv_in(sample.to(self.dtype))
         remat = cfg.gradient_checkpointing and attn_ctx is None and torch.is_grad_enabled()
+        mesh = current_seq_mesh()
+
+        def scopes():  # (the forward's, the recomputation's)
+            return contextlib.nullcontext(), seq_mesh_scope(mesh)
 
         def run(fn, *args):
-            return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=scopes) if remat else fn(*args)
 
         res_stack = [x]
         for block in self.down_blocks:

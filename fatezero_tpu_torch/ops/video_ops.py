@@ -53,8 +53,7 @@ def _padded(x: torch.Tensor, pad: int) -> torch.Tensor:
     if mesh is None or pad == 0:
         return _pad_frames(x, pad)
     lo, hi = mesh.neighbour_frames(x, pad, pad)
-    zeros = x.new_zeros((x.shape[0], pad, *x.shape[2:]))
-    return torch.cat([zeros if lo is None else lo, x, zeros if hi is None else hi], dim=1)
+    return torch.cat([lo, x, hi], dim=1)
 
 
 def temporal_conv(
@@ -179,13 +178,13 @@ def _sparse_sources(x: torch.Tensor, index_spec, num_frames: int) -> List[torch.
             parts.append(x)
         elif int(index) < 0:
             m = -int(index)
-            lo, _ = mesh.neighbour_frames(x, m, 0)
-            head = x[:, :1].expand(x.shape[0], m, *x.shape[2:]) if lo is None else lo  # clamp to frame 0
+            clamp = x[:, :1].expand(x.shape[0], m, *x.shape[2:])  # frame 0, before the clip
+            head, _ = mesh.neighbour_frames(x, m, 0, ends=(clamp, None))
             parts.append(torch.cat([head, x[:, : fl - m]], dim=1))
         else:
             m = int(index)
-            _, hi = mesh.neighbour_frames(x, 0, m)
-            tail = x[:, -1:].expand(x.shape[0], m, *x.shape[2:]) if hi is None else hi  # clamp to the last
+            clamp = x[:, -1:].expand(x.shape[0], m, *x.shape[2:])  # the last frame, after the clip
+            _, tail = mesh.neighbour_frames(x, 0, m, ends=(None, clamp))
             parts.append(torch.cat([x[:, m:], tail], dim=1))
     return parts
 

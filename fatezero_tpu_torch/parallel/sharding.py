@@ -20,14 +20,32 @@ row-split projection and over heads in the blend maps. Every one is an
 backend also takes on CUDA tensors; a gather is a sum over zero-padded slots,
 which is exact. A collective on a meta tensor returns it unchanged: a meta
 trace needs only the shapes.
+
+Tuning differentiates through them (autograd Functions; where autograd
+records nothing, as in the edit under inference mode, each is its forward
+alone):
+
+  * a sum over 'seq' (`_SeqSum`: the frame gathers, the halo, the anchor
+    frame and the GroupNorm statistics) sums the gradient over 'seq' too:
+    each seq rank's loss is its own frames' share of the total, so the sum
+    returns every frame's gradient to the rank that owns it;
+  * megatron's pair over 'tensor': f (`copy_to_tensor`, at the input of
+    every column-split linear) is the identity forward and sums the gradient
+    over the axis backward; g (the sum after a row-split linear) sums forward
+    and passes the gradient through. The loss is the same on every tensor
+    rank and counted once.
+
+`tensor_gather`, `tensor_layout` and `unshard_state` assemble whole tensors
+from the tensor-split weights (the trainer's optimizer and checkpoints).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 import math
 import os
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -95,12 +113,27 @@ class Mesh:
         return buf
 
     def tensor_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """`x` (a fresh tensor: summed in place) summed over the 'tensor' axis."""
-        return self._sum(x, "tensor")
+        """`x` (a fresh tensor: summed in place) summed over the 'tensor' axis
+        (megatron's g: the gradient passes through unsummed)."""
+        return _TensorReduce.apply(x, self)
 
     def seq_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """`x` (a fresh tensor: summed in place) summed over the 'seq' axis."""
-        return self._sum(x, "seq")
+        """`x` (a fresh tensor: summed in place) summed over the 'seq' axis;
+        its gradient is summed over the axis alike."""
+        return _SeqSum.apply(x, self)
+
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` (a fresh tensor, not differentiated) summed over the 'data' axis in place."""
+        return self._sum(x, "data")
+
+    def without_seq(self) -> "Mesh":
+        """This mesh with its frame split off: 'seq' reads as one device, so
+        no halo or frame collective runs, and the 'tensor' split stays (the
+        prior-preservation term's single-frame videos)."""
+        view = copy.copy(self)
+        view.shape = (self.shape[0], 1, self.shape[2])
+        view.coords = dict(self.coords, seq=0)
+        return view
 
     def local_frames(self, x, axis: int = 1):
         """This rank's block of `x`'s frames (tensor or numpy array); raises
@@ -122,7 +155,7 @@ class Mesh:
         shape[axis] = fl * self.seq
         buf = x.new_zeros(shape)
         buf.narrow(axis, self.seq_rank * fl, fl).copy_(x)
-        return self._sum(buf, "seq")
+        return self.seq_sum(buf)
 
     def frame_at(self, x: torch.Tensor, frame: int) -> torch.Tensor:
         """Global frame `frame` of a frame-sharded x [B, f, ...] as [B, 1, ...]
@@ -130,27 +163,35 @@ class Mesh:
         masked sum of the JAX package's psum)."""
         fl = x.shape[1]
         owner, loc = divmod(int(frame), fl)
-        buf = x.new_zeros((x.shape[0], 1, *x.shape[2:]))
-        if self.seq_rank == owner:
-            buf.copy_(x[:, loc : loc + 1])
-        return self._sum(buf, "seq")
+        mine = x[:, loc : loc + 1]
+        # `where`, not a branch: every rank records the same operations, so
+        # autograd runs the backward's collectives in one order on every rank
+        buf = torch.where(x.new_full((), self.seq_rank == owner, dtype=torch.bool), mine, torch.zeros_like(mine))
+        return self.seq_sum(buf)
 
-    def neighbour_frames(self, x: torch.Tensor, left: int, right: int):
+    def neighbour_frames(self, x: torch.Tensor, left: int, right: int, ends=(None, None)):
         """The halo of a frame-sharded x [B, f, ...]: (the `left` frames just
-        before this rank's block, the `right` frames just after it), each None
-        where the block ends the clip. One sum over slots: rank p fills slot p
-        with its last `left` and first `right` frames."""
+        before this rank's block, the `right` frames just after it). Where the
+        block ends the clip, `ends` stand there instead ([B, left, ...] and
+        [B, right, ...]; zeros where None). One sum over slots: rank p fills
+        slot p with its last `left` and first `right` frames. The clip's
+        ends are chosen with `where`, so that every rank records the same
+        operations and autograd runs the backward's collectives in one order
+        on every rank."""
         s, p, fl = self.seq, self.seq_rank, x.shape[1]
         if max(left, right) > fl:
             raise ValueError(f"a halo of {max(left, right)} frames exceeds the {fl} frames a rank holds")
+        lo_end, hi_end = (e if e is not None else x.new_zeros((x.shape[0], n, *x.shape[2:]))
+                          for e, n in zip(ends, (left, right)))
         if s == 1:
-            return None, None
+            return lo_end, hi_end
         buf = x.new_zeros((s, x.shape[0], left + right, *x.shape[2:]))
         buf[p, :, :left] = x[:, fl - left :]
         buf[p, :, left:] = x[:, :right]
-        self._sum(buf, "seq")
-        lo = buf[p - 1, :, :left] if p > 0 else None
-        hi = buf[p + 1, :, left:] if p < s - 1 else None
+        buf = self.seq_sum(buf)
+        first, last = (x.new_full((), edge, dtype=torch.bool) for edge in (p == 0, p == s - 1))
+        lo = torch.where(first, lo_end, buf[max(p - 1, 0), :, :left])
+        hi = torch.where(last, hi_end, buf[min(p + 1, s - 1), :, left:])
         return lo, hi
 
     def max_over_ranks(self, value: int) -> int:
@@ -168,6 +209,46 @@ class Mesh:
         box = [obj]
         dist.broadcast_object_list(box, src=0, device=self._host_values)
         return box[0]
+
+
+class _SeqSum(torch.autograd.Function):
+    """Sum over 'seq' forward; the gradient summed over 'seq' backward."""
+
+    @staticmethod
+    def forward(ctx, buf, mesh):
+        ctx.mesh = mesh
+        ctx.mark_dirty(buf)
+        return mesh._sum(buf, "seq")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._sum(g.clone(memory_format=torch.contiguous_format), "seq"), None
+
+
+class _TensorReduce(torch.autograd.Function):
+    """Megatron's g: sum over 'tensor' forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, buf, mesh):
+        ctx.mark_dirty(buf)
+        return mesh._sum(buf, "tensor")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToTensor(torch.autograd.Function):
+    """Megatron's f: the identity forward, the gradient summed over 'tensor' backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._sum(g.clone(memory_format=torch.contiguous_format), "tensor"), None
 
 
 # The mesh the models run under, set by FateZeroPipeline around its methods
@@ -209,13 +290,22 @@ def tensor_size() -> int:
 
 def row_parallel_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """`lin(x)` for a Linear whose input features are split over 'tensor'
-    (shard_unet_): the partial products summed over the axis, the bias added
-    once after the sum."""
+    (shard_unet_): the partial products summed over the axis (g), the bias
+    added once after the sum."""
     mesh = current_seq_mesh()
     if mesh is None or mesh.tensor == 1:
         return lin(x)
     y = mesh.tensor_sum(F.linear(x, lin.weight))
     return y if lin.bias is None else y + lin.bias
+
+
+def copy_to_tensor(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's f on the input of a column-split linear: x itself, whose
+    gradient is summed over the ambient mesh's 'tensor' axis."""
+    mesh = current_seq_mesh()
+    if mesh is None or mesh.tensor == 1:
+        return x
+    return _CopyToTensor.apply(x, mesh)
 
 
 # ------------------------------------------------------------------ set-up
@@ -354,3 +444,69 @@ def shard_unet_(unet: nn.Module, mesh: Mesh) -> nn.Module:
                 _keep_cols(m.net[2], cols)
     unet.tensor_shards = t
     return unet
+
+
+# ------------------------------------------------------- whole tensors
+def tensor_layout(unet: nn.Module) -> Dict[str, Tuple[int, int]]:
+    """{parameter name: (dim, chunks)} of every parameter shard_unet_ splits
+    over 'tensor': the dim split, and the number of equal chunks that split
+    alike (2 for a GEGLU projection's h and gate halves, else 1). Parameters
+    not named stay whole on every rank."""
+    from fatezero_tpu_torch.models.attention import Attention, TemporalAttention
+    from fatezero_tpu_torch.models.layers import FeedForward
+
+    out = {}
+    for prefix, m in unet.named_modules():
+        pre = f"{prefix}." if prefix else ""
+        if isinstance(m, (Attention, TemporalAttention)):
+            for lin in ("to_q", "to_k", "to_v"):
+                out[f"{pre}{lin}.weight"] = (0, 1)
+            out[f"{pre}to_out.0.weight"] = (1, 1)
+        elif isinstance(m, FeedForward):
+            out[f"{pre}net.0.proj.weight"] = (0, 2)
+            out[f"{pre}net.0.proj.bias"] = (0, 2)
+            out[f"{pre}net.2.weight"] = (1, 1)
+    return out
+
+
+def tensor_gather(x: torch.Tensor, dim: int, chunks: int = 1, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The whole tensor of which `x` is this rank's block along `dim` (in
+    `chunks` equal chunks, each split alike), on every rank: a sum over
+    zero-padded slots, exact. Not differentiated."""
+    mesh = mesh if mesh is not None else current_seq_mesh()
+    if mesh is None or mesh.tensor == 1:
+        return x
+    t, r = mesh.tensor, mesh.tensor_rank
+    parts = []
+    for part in x.chunk(chunks, dim):
+        n = part.shape[dim]
+        shape = list(part.shape)
+        shape[dim] = n * t
+        buf = part.new_zeros(shape)
+        buf.narrow(dim, r * n, n).copy_(part)
+        parts.append(mesh._sum(buf, "tensor"))
+    return torch.cat(parts, dim) if chunks > 1 else parts[0]
+
+
+def tensor_block(x: torch.Tensor, dim: int, chunks: int = 1, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """This rank's block of a whole tensor: the inverse of tensor_gather."""
+    mesh = mesh if mesh is not None else current_seq_mesh()
+    if mesh is None or mesh.tensor == 1:
+        return x
+    parts = []
+    for part in x.chunk(chunks, dim):
+        block = _block(part.shape[dim], mesh.tensor, mesh.tensor_rank, "features")
+        parts.append(part.narrow(dim, block.start, block.stop - block.start))
+    return torch.cat(parts, dim) if chunks > 1 else parts[0]
+
+
+def unshard_state(unet: nn.Module, mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """The UNet's whole state dict on every rank: the inverse of shard_unet_,
+    the split linears gathered over 'tensor' (a collective: every rank calls
+    it). Checkpoints are written from it."""
+    state = {k: v.detach() for k, v in unet.state_dict().items()}
+    if mesh is None or getattr(unet, "tensor_shards", 1) == 1:
+        return state
+    for name, (dim, chunks) in tensor_layout(unet).items():
+        state[name] = tensor_gather(state[name], dim, chunks, mesh)
+    return state

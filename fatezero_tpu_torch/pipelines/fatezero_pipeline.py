@@ -32,7 +32,10 @@ are per-step tensors. The payload is kept in its logical layout.
 the UNet keeps this rank's heads and feed-forward columns, and every method
 runs under the mesh. `encode_video` keeps this rank's block of frames, and
 the DDIM carry, the payload, the blend masks and `decode_latents` stay on
-those frames; `gather_frames` assembles the whole clip on request.
+those frames; `gather_frames` assembles the whole clip on request. The
+streaming half runs there too: each rank's AttentionStore holds its frames
+and heads of every map, the host trajectory stays on its frames, and the
+blenders record the whole clip's masks.
 """
 from __future__ import annotations
 
@@ -355,7 +358,7 @@ class FateZeroPipeline:
             for blender, key in ((attn_blend, "attention_blend"), (latent_blend, "latent_blend")):
                 if blender is not None and masks[key] is not None:
                     blender.counter += 1
-                    blender.record(masks[key].float().cpu().numpy(), f"step{i:03d}")
+                    blender.record(self.gather_frames(masks[key]).float().cpu().numpy(), f"step{i:03d}")
         return latent
 
     def _save_step(self, latent, t, text_embeddings, guidance_scale, steps):
@@ -466,6 +469,24 @@ class FateZeroPipeline:
         leaves = _payload_leaves({"probs": sctx.captured, "qk": sctx.captured_qk})
         per_step = sum(t.numel() * t.element_size() for t in leaves)
         return per_step * num_inference_steps
+
+    @_on_mesh
+    def store_step_bytes(self, latents: torch.Tensor, save_self_attention: bool = True) -> int:
+        """Predict the bytes one step of `invert(store=...)` copies to the host
+        store, without running the model: a meta-device forward with the
+        inversion's StoreContext records every stored map's shape. On a mesh,
+        what this rank stores: its frames and heads."""
+        from fatezero_tpu_torch.models.unet3d import UNetPseudo3DConditionModel
+
+        meta = UNetPseudo3DConditionModel(self.unet.cfg, dtype=self.unet.dtype, device="meta")
+        if self.mesh is not None:
+            shard_unet_(meta, self.mesh)
+        ctx = StoreContext(save_self_attention=save_self_attention, store_dtype=self.store_dtype)
+        lat = torch.empty(tuple(latents.shape), dtype=torch.float32, device="meta")
+        cond = torch.empty((1, 77, self.unet.cfg.cross_attention_dim), dtype=torch.float32, device="meta")
+        with torch.inference_mode():
+            meta(lat, 0, cond, attn_ctx=ctx)
+        return sum(m.numel() * m.element_size() for v in ctx.captured.values() for m in v)
 
     def plan_capture(
         self,

@@ -16,9 +16,10 @@ The artifact names are the JAX package's. The edit is, as there:
   attention, every later prompt edits against that store; a reconstruction
   prompt (the source prompt) samples without a controller.
 
-On a device mesh (the fused path) every rank edits its block of frames; the
+On a device mesh every rank edits its block of frames, on either path; the
 decoded videos, masks and attention maps are gathered over the frames, and
-only the `writer` (rank 0) writes them.
+only the `writer` (rank 0) writes them (the controllers of the other ranks
+get no save path, so their blenders record without writing).
 """
 from __future__ import annotations
 

@@ -12,6 +12,11 @@ Without a trajectory (pure generation) each seed draws its starting noise
 from a seeded host `torch.Generator` (the JAX package draws with
 jax.random.normal), at the JAX package's latent shape [1, clip_length, 64,
 64, 4] whatever the clip's resolution.
+
+On a device mesh (a sharded pipeline) each rank samples its block of frames:
+the generation noise is drawn whole and each rank keeps its frames, the
+decoded videos are gathered over the frames, and only the `writer` (rank 0)
+writes.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ class SampleLogger:
         annotate_size: int = 15,
         make_grid: bool = True,
         grid_column_size: int = 2,
+        writer: bool = True,
         **kwargs,
     ) -> None:
         self.editing_prompts = list(editing_prompts)
@@ -57,7 +63,9 @@ class SampleLogger:
             sample_seeds = sorted(int(s) for s in rs.randint(0, int(1e5), int(num_samples_per_prompt)))
         self.sample_seeds = [int(s) for s in sample_seeds]
         self.logdir = os.path.join(logdir, subdir)
-        os.makedirs(self.logdir, exist_ok=True)
+        self.writer = writer
+        if writer:
+            os.makedirs(self.logdir, exist_ok=True)
         self.annotate = annotate
         self.annotate_size = annotate_size
         self.make_grid = make_grid
@@ -82,8 +90,10 @@ class SampleLogger:
             for seed in self.sample_seeds:
                 if traj is not None:
                     init = traj[n_used]
-                else:  # pure generation: seeded noise at the latent shape
+                else:  # pure generation: seeded noise at the latent shape, this rank's frames of it
                     init = generation_noise(seed, (1, self.clip_length, 64, 64, 4))
+                    if getattr(pipeline, "mesh", None) is not None:
+                        init = pipeline.mesh.local_frames(init)
                 latent = pipeline.sample(
                     init,
                     emb,
@@ -91,13 +101,14 @@ class SampleLogger:
                     guidance_scale=self.guidance_scale,
                     strength=self.strength if traj is not None else 1.0,
                 )
-                video = pipeline.decode_latents(latent)
-                save_gif_mp4_folder_type(video, os.path.join(self.logdir, f"step_{step}_{idx}_{seed}.gif"))
+                video = pipeline.gather_frames(pipeline.decode_latents(latent), 0)
+                if self.writer:
+                    save_gif_mp4_folder_type(video, os.path.join(self.logdir, f"step_{step}_{idx}_{seed}.gif"))
                 if self.annotate:
                     video = annotate_video(video, str(prompt), font_size=self.annotate_size)
                 if self.make_grid:
                     samples_all.append(video)
-        if self.make_grid and samples_all:
+        if self.make_grid and samples_all and self.writer:
             # a square-ish grid, ceil(sqrt(n)) videos a row
             cols = int(np.ceil(np.sqrt(len(samples_all))))
             rows = []

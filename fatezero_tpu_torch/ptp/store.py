@@ -10,23 +10,33 @@ Contents per step: {key: [CPU tensors [1, f, heads, s, kv]]} for the six
 down/mid/up x cross/self keys. `step_bytes` and `copy_seconds` record, per
 step, the bytes copied off the card and the seconds the copy, the running
 sums and the pickle took.
+
+On a device mesh (`mesh`) each rank keeps a store of its own: its frames
+(seq) and heads (tensor) of every map, 1/(seq*tensor) of the world of one's
+bytes. A mesh of several processes keys the pickles by rank,
+`{step:03d}.rank{rank}.pkl`, so that the ranks can share one folder, and
+`get_average_attention(keys)` assembles the chosen maps whole.
 """
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from fatezero_tpu_torch.ptp.context import STORE_KEYS
 
+CROSS_KEYS = tuple(k for k in STORE_KEYS if k.endswith("cross"))  # the maps the cross-attention drawing reads
+
 
 class AttentionStore:
-    def __init__(self, disk_store: bool = False, store_dir: Optional[str] = None):
+    def __init__(self, disk_store: bool = False, store_dir: Optional[str] = None, mesh=None):
         self.disk_store = disk_store
+        self.mesh = mesh if mesh is not None and math.prod(mesh.shape) > 1 else None
         if disk_store:
             self.store_dir = store_dir or tempfile.mkdtemp(prefix="attention_cache_")
             os.makedirs(self.store_dir, exist_ok=True)
@@ -55,7 +65,8 @@ class AttentionStore:
                 for i, m in enumerate(v):
                     self.attention_store[k][i] += m.float()
         if self.disk_store:
-            path = os.path.join(self.store_dir, f"{self.num_steps:03d}.pkl")
+            tag = "" if self.mesh is None else f".rank{self.mesh.rank}"
+            path = os.path.join(self.store_dir, f"{self.num_steps:03d}{tag}.pkl")
             with open(path, "wb") as f:
                 pickle.dump(step, f)
             self.attention_store_all_step.append(path)
@@ -74,6 +85,20 @@ class AttentionStore:
                 entry = pickle.load(f)
         return entry
 
-    def get_average_attention(self) -> Dict[str, List[torch.Tensor]]:
-        """Per-map mean over the stored steps."""
-        return {k: [m / max(self.num_steps, 1) for m in v] for k, v in self.attention_store.items()}
+    def get_average_attention(self, keys: Optional[Sequence[str]] = None) -> Dict[str, List[torch.Tensor]]:
+        """Per-map mean over the stored steps, of the maps under `keys` (every
+        key by default). On a mesh of several processes each is assembled
+        whole, every rank's frames and heads, on every rank (a collective:
+        every rank calls it with the same keys)."""
+        keys = list(self.attention_store) if keys is None else keys
+        avg = {k: [m / max(self.num_steps, 1) for m in self.attention_store[k]] for k in keys}
+        mesh = self.mesh
+        if mesh is None:
+            return avg
+        from fatezero_tpu_torch.parallel.sharding import tensor_gather
+
+        def whole(m):  # [1, f, heads, s, kv]
+            m = m.to(mesh.device)
+            return tensor_gather(mesh.all_frames(m, 1), 2, mesh=mesh).cpu()
+
+        return {k: [whole(m) for m in v] for k, v in avg.items()}

@@ -8,8 +8,10 @@ under csrc/ built, and K1 with K2/K3 at one small bf16 shape against their
 plain versions; whether the C++ frame loader (native/) builds, and if not,
 why; NCCL's and gloo's availability, the device count, and one process group
 of a single process brought up and torn down on each backend the machine
-can run. A machine without a card prints what it lacks and exits 0; on a
-card any failed check exits 1.
+can run; in the gloo one, a backward through the mesh's differentiable
+collectives (a sum over 'seq' and megatron's f/g pair over 'tensor') against
+plain autograd. A machine without a card prints what it lacks and exits 0;
+on a card any failed check exits 1.
 """
 from __future__ import annotations
 
@@ -62,8 +64,9 @@ def _kernels_vs_plain() -> str:
     return ", ".join(f"{n} {e:.2e}" for n, e in errs.items()) + f" (tol {TOL}, bf16 {SHAPE})"
 
 
-def _process_group(backend: str, device: torch.device) -> str:
-    """One process group of a single process: an all_reduce and a broadcast, then torn down."""
+def _process_group(backend: str, device: torch.device, backward: bool = False) -> str:
+    """One process group of a single process: an all_reduce and a broadcast,
+    with `backward` also the training collectives' backward; then torn down."""
     store = dist.HashStore()
     dist.init_process_group(backend, store=store, rank=0, world_size=1)
     try:
@@ -72,9 +75,36 @@ def _process_group(backend: str, device: torch.device) -> str:
         dist.broadcast(t, src=0)
         if not torch.equal(t.cpu(), torch.ones(4)):
             raise AssertionError(f"a world of one summed to {t.tolist()}")
+        if backward:
+            _collective_backward(device)
     finally:
         dist.destroy_process_group()
-    return f"world of one on {device}: all_reduce and broadcast"
+    return f"world of one on {device}: all_reduce and broadcast" + (
+        ", backward through _SeqSum and f/g" if backward else "")
+
+
+def _collective_backward(device: torch.device) -> None:
+    """A world of one's mesh: the gradient through one sum over 'seq' and one
+    f/g pair (the autograd Functions themselves; a world of one's sums move
+    nothing) around two matmuls equals plain autograd's."""
+    from fatezero_tpu_torch.parallel import sharding as SH
+
+    mesh = SH.make_mesh((1, 1, 1), device)
+    gen = torch.Generator().manual_seed(0)
+    x0, w1, w2 = (torch.randn(shape, generator=gen).to(device) for shape in ((3, 8), (8, 8), (8, 8)))
+    grads = []
+    for on_mesh in (True, False):
+        x = x0.clone().requires_grad_()
+        if on_mesh:
+            h = SH._CopyToTensor.apply(x, mesh) @ w1  # f
+            y = SH._TensorReduce.apply(h @ w2, mesh)  # g
+            y = SH._SeqSum.apply(y * 1.0, mesh)
+        else:
+            y = x @ w1 @ w2
+        y.square().sum().backward()
+        grads.append(x.grad)
+    if not torch.allclose(grads[0], grads[1], rtol=1e-6, atol=1e-6):
+        raise AssertionError("the mesh's collectives' backward differs from plain autograd")
 
 
 def main() -> int:
@@ -111,7 +141,8 @@ def main() -> int:
     _report("gloo", dist.is_gloo_available() or None, "torch.distributed backend")
     _report("nccl", dist.is_nccl_available() or None, "torch.distributed backend")
     if dist.is_gloo_available():
-        check("gloo process group", lambda: _process_group("gloo", torch.device("cpu")), needs_card=False)
+        check("gloo process group", lambda: _process_group("gloo", torch.device("cpu"), backward=True),
+              needs_card=False)
     if dist.is_nccl_available():
         check("nccl process group", lambda: _process_group("nccl", torch.device("cuda", 0)))
     return 0 if ok or not card_ok else 1

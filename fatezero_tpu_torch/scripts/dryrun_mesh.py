@@ -1,25 +1,29 @@
-"""The edit on a device mesh against a world of one: a multi-process dry run.
+"""The edit, a tuning update and the streaming store on a device mesh against a world of one.
 
     python3 -m fatezero_tpu_torch.scripts.dryrun_mesh [--mesh 1,2,2] [--device cuda] [--backend gloo]
 
-The inference half of the JAX package's `__graft_entry__.dryrun_multichip`.
-It spawns one process per mesh device (torch.multiprocessing, the spawn start
-method; they meet through a file:// store) and runs a tiny edit on the mesh:
-`encode_video`, `invert_fast(capture=True)` and `edit_fast` in the stored and
-hybrid modes. Then it runs the same in a world of one, spawned the same way,
+The port's `__graft_entry__.dryrun_multichip`. It spawns one process per mesh
+device (torch.multiprocessing, the spawn start method; they meet through a
+file:// store) and runs, at tiny size: the edit (`encode_video`,
+`invert_fast(capture=True)` and `edit_fast` in the stored and hybrid modes),
+one DDPMTrainer update (`train_job`) and the streaming store
+(`invert(store=...)`, then `sample` with an EditController against it:
+`stream_job`). Then it runs the same in a world of one, spawned the same way,
 and prints each output's max_abs_diff. The parent draws the weights, encodes
 the prompts and builds the controllers once and hands them to every rank, so
 the stub tokenizer's per-process hash cannot make the runs differ.
 
 `launch(fn, shape, ...)` runs `fn(mesh, *args)` in each rank, every rank under
-one PYTHONHASHSEED, and returns each rank's result; `edit_job` is the dry run's rank function, which the tests and
-the smoke also drive. On "cuda" every rank takes the card `rank % count`
-(the smoke's gloo ranks share one card); the backend follows the device
-unless `backend` is given.
+one PYTHONHASHSEED, and returns each rank's result; `edit_job`, `train_job`
+and `stream_job` are the dry run's rank functions, which the tests and the
+smoke also drive (`jobs` runs several in one launch). On "cuda" every rank
+takes the card `rank % count` (the smoke's gloo ranks share one card); the
+backend follows the device unless `backend` is given.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import os
@@ -65,9 +69,13 @@ def launch(fn, shape: Sequence[int], device="cpu", backend: Optional[str] = None
     mesh; returns each rank's return value (saved with torch.save), in rank
     order. `fn` must be importable by name (a module-level function)."""
     shape = tuple(int(s) for s in shape)
-    hash_seed = os.environ.get("PYTHONHASHSEED")
+    saved = {k: os.environ.get(k) for k in ("PYTHONHASHSEED", "PYTORCH_CUDA_ALLOC_CONF")}
     # one hash seed for every rank: the stub tokenizer's ids follow `hash`
     os.environ["PYTHONHASHSEED"] = "0"
+    if torch.device(device).type == "cuda" and math.prod(shape) > torch.cuda.device_count():
+        # ranks sharing a card: each caching allocator would keep the blocks
+        # its last job fragmented, and together they outgrow the card
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             torch.multiprocessing.start_processes(
@@ -77,10 +85,11 @@ def launch(fn, shape: Sequence[int], device="cpu", backend: Optional[str] = None
             return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                     for r in range(math.prod(shape))]
     finally:
-        if hash_seed is None:
-            del os.environ["PYTHONHASHSEED"]
-        else:
-            os.environ["PYTHONHASHSEED"] = hash_seed
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 # ---------------------------------------------------------------- the edit
@@ -140,9 +149,6 @@ def edit_job(mesh, path: str, dtypes=("float32",), unet_pass: bool = False):
     payload bytes predicted (`capture_payload_bytes`) and held, peak device
     memory and seconds, and the edits' attention maps where `viz` asks; with
     `unet_pass` also one UNet forward's eps."""
-    from fatezero_tpu_torch.models.loader import _build
-    from fatezero_tpu_torch.models.unet3d import UNetPseudo3DConditionModel
-    from fatezero_tpu_torch.models.vae import AutoencoderKL
     from fatezero_tpu_torch.ops import flash_attention as FA
     from fatezero_tpu_torch.ops import schedule as S
     from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
@@ -150,20 +156,15 @@ def edit_job(mesh, path: str, dtypes=("float32",), unet_pass: bool = False):
 
     data = torch.load(path, weights_only=False, mmap=True)
     dev = mesh.device
-    on_card = dev.type == "cuda"
     steps = data["steps"]
     results = {}
     for name in dtypes:
         dtype = getattr(torch, name)
-        unet = _build(UNetPseudo3DConditionModel, data["unet_cfg"], dtype, dev, lambda m: _numpy(data["unet"]))
-        vae = _build(AutoencoderKL, data["vae_cfg"], dtype, dev, lambda m: _numpy(data["vae"]))
+        unet, vae = _models(data, dtype, dev)
         pipe = FateZeroPipeline(unet, vae, None, None, S.make_schedule(device=dev), device=dev,
                                 store_dtype=dtype).shard(mesh)
         emb_src, emb_tgt = data["emb_src"].to(dev), data["emb_tgt"].to(dev)
-        if on_card:
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
+        t0 = _start(dev)
         encoded = pipe.encode_video(torch.from_numpy(data["video"]))
         latents = mesh.local_frames(data["latents"]).to(dev)
         out = dict(rank=mesh.rank, coords=dict(mesh.coords), local_frames=int(latents.shape[1]),
@@ -192,19 +193,192 @@ def edit_job(mesh, path: str, dtypes=("float32",), unet_pass: bool = False):
             out["edited"][edit] = pipe.gather_frames(latent).cpu()
             if viz:
                 out["viz"][edit] = pipe.gather_frames(aux["cross_avg"]).cpu()
-        if on_card:
-            torch.cuda.synchronize(dev)
-            out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-        out["seconds"] = time.perf_counter() - t0
-        results[name] = out
+        results[name] = _finish(out, dev, t0)
         del pipe, unet, vae, traj, stored
-        if on_card:
+        if dev.type == "cuda":
             torch.cuda.empty_cache()
     return results
 
 
+def _models(data, dtype, dev, model_config=None):
+    """The UNet and the VAE of `prepare`'s file in `dtype` on `dev`; `model_config`
+    replaces fields of the UNet's config (the tuning switches)."""
+    import dataclasses
+
+    from fatezero_tpu_torch.models.loader import _build
+    from fatezero_tpu_torch.models.unet3d import UNetPseudo3DConditionModel
+    from fatezero_tpu_torch.models.vae import AutoencoderKL
+
+    cfg = dataclasses.replace(data["unet_cfg"], **(model_config or {}))
+    unet = _build(UNetPseudo3DConditionModel, cfg, dtype, dev, lambda m: _numpy(data["unet"]))
+    vae = _build(AutoencoderKL, data["vae_cfg"], dtype, dev, lambda m: _numpy(data["vae"]))
+    return unet, vae
+
+
+def _launches():
+    from fatezero_tpu_torch.ops import flash_attention as FA
+
+    return {"K1": FA.flash_forward.launches, "K2": FA.flash_dq.launches, "K3": FA.flash_dkv.launches}
+
+
+def _reset_launches():
+    from fatezero_tpu_torch.ops import flash_attention as FA
+
+    for fn in (FA.flash_forward, FA.flash_dq, FA.flash_dkv):
+        fn.launches = 0
+
+
+def _start(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    return time.perf_counter()
+
+
+def _finish(out, dev, t0):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["reserved_bytes"] = torch.cuda.max_memory_reserved(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ------------------------------------------------------------------ tuning
+def train_job(mesh, path: str, dtypes=("float32",), optimizer: str = "adamw", gradient_checkpointing: bool = True,
+              prior_preservation: Optional[float] = None, lr: float = 1e-3, seed: int = 0, draws=None,
+              keep_state: bool = True, model_config: Optional[dict] = None, tensors: str = "all"):
+    """A rank of the tuning dry run: one DDPMTrainer update of `prepare`'s UNet
+    (LoRA and the temporal convs trained, `gradient_checkpointing` as given)
+    on `mesh`, per model dtype. The clip is the file's video, the prompt the
+    source embedding's cond row; the draws are `draws` (a trainer Draws, say
+    JAX's) or come from a host generator seeded `seed` (whole-clip shapes, so
+    every rank and the world of one draw alike). With
+    `prior_preservation` the file's `class_images` and target embedding are
+    the class term; `model_config` replaces fields of the UNet's config (the
+    tuning config's sparse-causal frames, say). Returns per dtype the loss,
+    the global gradient norm before clipping, the updated trainable tensors
+    and their clipped fp32 gradients whole (unshard_state; with tensors="rank0"
+    rank 0 alone returns them), the frozen tensors that moved, the rank's
+    K1/K2/K3 launches, peak device memory and seconds, and with `keep_state`
+    the optimizer's state dict and the masters."""
+    from fatezero_tpu_torch.ops import schedule as S
+    from fatezero_tpu_torch.parallel.sharding import shard_unet_, unshard_state
+    from fatezero_tpu_torch.trainer.ddpm_trainer import DDPMTrainer
+
+    data = torch.load(path, weights_only=False, mmap=True)
+    dev = mesh.device
+    results = {}
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        unet, vae = _models(data, dtype, dev, {**(model_config or {}), "gradient_checkpointing": gradient_checkpointing})
+        shard_unet_(unet, mesh)
+        trainer = DDPMTrainer(unet, vae, schedule=S.make_schedule(device=dev), learning_rate=lr,
+                              train_temporal_conv=True, optimizer=optimizer,
+                              prior_preservation=prior_preservation, mesh=mesh)
+        state = trainer.init_state()
+        # on the host: a copy on the card would double the frozen UNet there
+        frozen = {n: p.detach().to("cpu", copy=True)
+                  for n, p in unet.named_parameters() if n not in trainer.trainable}
+        images = torch.from_numpy(data["video"]).to(dev)
+        emb = data["emb_src"][-1:].to(dev)
+        cls = cls_emb = None
+        if prior_preservation is not None:
+            cls, cls_emb = torch.from_numpy(data["class_images"]).to(dev), data["emb_tgt"][-1:].to(dev)
+        d = draws or trainer.draw(torch.Generator().manual_seed(seed), images.shape, None if cls is None else cls.shape)
+        _reset_launches()
+        t0 = _start(dev)
+        loss = trainer._update(state, images, emb, d.to(dev), cls, cls_emb)
+        out = _finish(dict(rank=mesh.rank, coords=dict(mesh.coords), loss=float(loss)), dev, t0)
+        out["launches"] = _launches()
+        out["grad_norm"] = float(state["grad_norm"])
+        whole = unshard_state(unet, mesh)
+        if tensors == "all" or mesh.rank == 0:
+            out["trainable"] = {n: whole[n].float().cpu() for n in trainer.trainable}
+            out["grads"] = {n: m.grad.cpu() for n, m in state["master"].items()}
+        out["frozen_moved"] = [n for n, p in unet.named_parameters()
+                               if n in frozen and not torch.equal(p.detach().cpu(), frozen[n])]
+        if keep_state:
+            out["optimizer"] = state["optimizer"].state_dict()
+            out["master"] = {n: m.detach().cpu() for n, m in state["master"].items()}
+        results[name] = out
+        del trainer, state, unet, vae, frozen, whole
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------------------- streaming store
+def stream_job(mesh, path: str, dtypes=("float32",), edit: Optional[str] = None, disk_dir: Optional[str] = None,
+               keep_average: bool = True):
+    """A rank of the streaming dry run, per model dtype (the store's too):
+    `invert(store=...)` of the file's latents (this rank's frames), then
+    `sample` with the file's controller `edit` (the first by default)
+    against that store. With `disk_dir` the store pickles each step there,
+    keyed by this rank. Returns the trajectory and the edit (gathered over
+    'seq'), the masks the controller's blenders recorded (the whole clip's),
+    the store's bytes a step held and predicted (`store_step_bytes`), its pickles' names,
+    the average cross attention gathered whole (with `keep_average`, else its
+    sum), the rank's K1 launches, peak device memory and seconds."""
+    from fatezero_tpu_torch.ops import schedule as S
+    from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+    from fatezero_tpu_torch.ptp.store import CROSS_KEYS, AttentionStore
+
+    data = torch.load(path, weights_only=False, mmap=True)
+    dev = mesh.device
+    steps = data["steps"]
+    edit = edit or next(iter(data["controllers"]))
+    results = {}
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        ctl = copy.deepcopy(data["controllers"][edit][2])  # its blenders record each run's masks
+        unet, vae = _models(data, dtype, dev)
+        pipe = FateZeroPipeline(unet, vae, None, None, S.make_schedule(device=dev), device=dev,
+                                store_dtype=dtype).shard(mesh)
+        latents = mesh.local_frames(data["latents"]).to(dev)
+        emb_src, emb_tgt = data["emb_src"].to(dev), data["emb_tgt"].to(dev)
+        store = AttentionStore(disk_store=disk_dir is not None, store_dir=disk_dir, mesh=mesh)
+        _reset_launches()
+        t0 = _start(dev)
+        traj = pipe.invert(latents, emb_src, steps, store=store)
+        edited = pipe.sample(traj[-1], emb_tgt, steps, controller=ctl, inv_store=store, inverted_latents=traj)
+        out = _finish(dict(rank=mesh.rank, coords=dict(mesh.coords), local_frames=int(latents.shape[1])), dev, t0)
+        out["launches"] = _launches()
+        out["traj"] = pipe.gather_frames(torch.stack(traj).to(dev), 2).cpu()
+        out["edited"] = pipe.gather_frames(edited).cpu()
+        out["step_bytes"] = list(store.step_bytes)
+        out["step_bytes_predicted"] = pipe.store_step_bytes(latents)
+        out["pickles"] = [os.path.basename(p) for p in store.attention_store_all_step if isinstance(p, str)]
+        out["masks"] = {k: [np.asarray(m) for m in getattr(ctl, k).mask_list]
+                        for k in ("attention_blend", "latent_blend") if getattr(ctl, k) is not None}
+        avg = store.get_average_attention(CROSS_KEYS)
+        out["average"] = avg if keep_average else {k: [float(m.double().sum()) for m in v] for k, v in avg.items()}
+        results[name] = out
+        del pipe, unet, vae, store, traj
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
+def jobs(mesh, calls):
+    """Several rank functions in one launch: [(name, fn, args, kwargs)] ->
+    {name: fn(mesh, *args, **kwargs)}, in order on every rank."""
+    return {name: fn(mesh, *args, **kwargs) for name, fn, args, kwargs in calls}
+
+
 def _numpy(state):
     return {k: v.numpy() for k, v in state.items()}
+
+
+def update_agreement(sharded: dict, single: dict, lr: float) -> Dict[str, float]:
+    """Two updates of the same trainables (name -> tensor) against each other,
+    in units of the learning rate: the share of coordinates within 1e-3 lr and
+    the largest gap. AdamW's first step moves a coordinate by lr * g / (|g| +
+    eps), so a gradient near eps turns on its last bits, and sums over ranks
+    run in another order: the trainer's tests hold >= 99.9% within 1e-3 lr and
+    every coordinate within 2.1 lr."""
+    gaps = torch.cat([(sharded[n].float() - v.float()).abs().reshape(-1) for n, v in single.items()]) / lr
+    return {"share_within_1e-3_lr": float((gaps <= 1e-3).double().mean()), "max_over_lr": float(gaps.max())}
 
 
 def max_abs_diffs(sharded: dict, single: dict) -> Dict[str, float]:
@@ -222,14 +396,23 @@ def main(argv=None) -> int:
     parser.add_argument("--backend", default=None, help="gloo or nccl (default: the device's)")
     args = parser.parse_args(argv)
     shape = tuple(int(x) for x in args.mesh.split(","))
+    calls = [("edit", edit_job, (), {}), ("train", train_job, (), {"keep_state": False}),
+             ("stream", stream_job, (), {"keep_average": False})]
     with tempfile.TemporaryDirectory() as tmp:
-        path = prepare(os.path.join(tmp, "inputs.pt"), frames=max(4, 2 * shape[1]))
-        sharded = launch(edit_job, shape, args.device, args.backend, args=(path,), workdir=tmp)[0]["float32"]
-        single = launch(edit_job, (1, 1, 1), args.device, args.backend, args=(path,), workdir=tmp)[0]["float32"]
-    diffs = max_abs_diffs(sharded, single)
+        path = prepare(os.path.join(tmp, "inputs.pt"), model_config=dict(TEASER, lora=160),
+                       frames=max(4, 2 * shape[1]))
+        calls = [(n, fn, (path, *a), kw) for n, fn, a, kw in calls]
+        sharded = launch(jobs, shape, args.device, args.backend, args=(calls,), workdir=tmp)[0]
+        single = launch(jobs, (1, 1, 1), args.device, args.backend, args=(calls,), workdir=tmp)[0]
+    diffs = max_abs_diffs(sharded["edit"]["float32"], single["edit"]["float32"])
+    train, train1 = sharded["train"]["float32"], single["train"]["float32"]
+    diffs["stream"] = float((sharded["stream"]["float32"]["edited"] - single["stream"]["float32"]["edited"]).abs().max())
+    loss_rel = abs(train["loss"] - train1["loss"]) / abs(train1["loss"])
+    update = update_agreement(train["trainable"], train1["trainable"], 1e-3)
     print(json.dumps({"mesh": dict(zip(("data", "seq", "tensor"), shape)), "device": args.device,
-                      "max_abs_diff": diffs}))
-    return 0 if all(np.isfinite(list(diffs.values()))) and max(diffs.values()) <= 1e-4 else 1
+                      "max_abs_diff": diffs, "train_loss_rel": loss_rel, "train_update": update}))
+    ok = all(np.isfinite(list(diffs.values()))) and max(diffs.values()) <= 1e-4 and loss_rel <= 1e-5
+    return 0 if ok and update["share_within_1e-3_lr"] >= 0.999 and update["max_over_lr"] <= 2.1 else 1
 
 
 if __name__ == "__main__":

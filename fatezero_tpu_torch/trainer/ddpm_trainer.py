@@ -30,6 +30,21 @@ Randoms: JAX draws t, the noise and the VAE posterior sample from split keys.
 Here `draw` takes them from a host `torch.Generator` in a fixed order, so a
 seed gives the same draws on the card and the CPU, and `_update` takes
 explicit draws (a test can hand it JAX's).
+
+On a (data, seq, tensor) device mesh (`mesh`; the UNet already split by
+`FateZeroPipeline.shard`) every rank takes the whole clip and the whole
+clip's draws and keeps its block of frames, so the ranks see the randoms of
+a world of one. Each seq rank's loss is its frames' mean scaled by their
+share of the clip, and the class term of prior preservation (single-frame
+videos, which do not split over 'seq') runs whole on every rank under the
+tensor split alone, weighted by 1 / (data * seq); the data ranks are
+replicas of the clip, weighted by 1 / data. The trainable gradients are
+summed over 'data' and 'seq' (megatron's f and g already make them whole
+over 'tensor'), the tensor-split ones gathered over 'tensor', and one
+optimizer of the world of one's size steps whole fp32 masters on every rank:
+AdamW, AdamW8bit's 256-value blocks and Adafactor's factored statistics see
+the whole tensors, and `training_state.pt` has the world of one's layout.
+Each rank then writes its block of the masters into its parameters.
 """
 from __future__ import annotations
 
@@ -42,6 +57,7 @@ import torch
 
 from fatezero_tpu_torch.models.vae import VAE_SCALE
 from fatezero_tpu_torch.ops import schedule as S
+from fatezero_tpu_torch.parallel.sharding import seq_mesh_scope, tensor_block, tensor_gather, tensor_layout
 
 TRAINABLE = ("attn_temporal", "to_q")
 TEMPORAL_CONV = ("conv_temporal",)  # holds the flax conv_temporal_* and lora_temporal_* leaves
@@ -161,9 +177,7 @@ def load_training_state(path: str, trainer: "DDPMTrainer", state: Dict) -> Dict:
     with torch.no_grad():
         for name, master in state["master"].items():
             master.copy_(saved["master"][name])
-            param = trainer.trainable[name]
-            if param is not master:
-                param.copy_(master)
+        trainer._write_back(state)
     state["optimizer"].load_state_dict(saved["optimizer"])
     state["step"] = int(saved["step"])
     return state
@@ -191,9 +205,11 @@ class DDPMTrainer:
         prediction_type: str = "epsilon",
         prior_preservation: Optional[float] = None,
         weight_decay: float = 1e-2,
+        mesh=None,
     ):
         self.unet = unet
         self.vae = vae
+        self.mesh = mesh
         device = next(unet.parameters()).device
         self.schedule = schedule if schedule is not None else S.make_schedule(
             prediction_type=prediction_type, device=device
@@ -211,17 +227,24 @@ class DDPMTrainer:
         for p in vae.parameters():
             p.requires_grad_(False)
         self.trainable = {name: p for name, p in unet.named_parameters() if mask[name]}
+        # (dim, chunks) of each trainable tensor split over 'tensor'
+        split = mesh is not None and mesh.tensor > 1
+        layout = tensor_layout(unet) if split else {}
+        self.split = {n: layout[n] for n in self.trainable if n in layout}
         cfg = vae.cfg
         self._vae_factor = 2 ** (len(cfg.block_out_channels) - 1)
         self._latent_channels = cfg.latent_channels
 
     def init_state(self) -> Dict:
         """{"step", "optimizer", "master"}: master holds an fp32 copy of each
-        trainable parameter (the parameter itself where it is fp32)."""
-        master = {
-            n: p if p.dtype == torch.float32 else p.detach().float().clone()
-            for n, p in self.trainable.items()
-        }
+        trainable parameter (the parameter itself where it is fp32 and whole;
+        on a mesh the tensor-split ones gathered whole)."""
+        master = {}
+        for n, p in self.trainable.items():
+            if n in self.split:
+                master[n] = tensor_gather(p.detach().float(), *self.split[n], mesh=self.mesh)
+            else:
+                master[n] = p if p.dtype == torch.float32 else p.detach().float().clone()
         params = list(master.values())
         if self.optimizer == "adamw8bit":
             from fatezero_tpu_torch.trainer.adam8bit import AdamW8bit
@@ -280,23 +303,44 @@ class DDPMTrainer:
 
     def _update(self, state, images, text_emb, draws: Draws, class_images=None, class_text_emb=None):
         """One parameter update with explicit draws; returns the loss (on the device).
-        The clipped fp32 gradients stay in each master's `.grad` until the next update."""
+        The clipped fp32 gradients stay in each master's `.grad` until the next update.
+        images and draws are the whole clip's, on a mesh too."""
+        mesh = self.mesh
         for p in self.trainable.values():
             p.grad = None
-        latents = self._encode(images, draws.vae_noise)[None]  # [1, f, h, w, 4]
-        loss = self._loss(latents, text_emb, draws.noise, draws.t)
-        if self.prior_preservation is not None and class_images is not None:
-            lat2 = self._encode(class_images, draws.class_vae_noise)[:, None]  # [b, 1, h, w, 4]
-            loss = loss + self.prior_preservation * self._loss(lat2, class_text_emb, draws.class_noise, draws.class_t)
-        loss.backward()
+        data, seq = (1, 1) if mesh is None else (mesh.size("data"), mesh.seq)
+        vae_noise, noise = draws.vae_noise, draws.noise
+        if mesh is not None:  # this rank's frames of the whole clip and its draws
+            images, vae_noise, noise = (mesh.local_frames(x, a) for x, a in ((images, 0), (vae_noise, 0), (noise, 1)))
+        latents = self._encode(images, vae_noise)[None]  # [1, f, h, w, 4]
+        with seq_mesh_scope(mesh):
+            # the local mean times the local share of the frames: the seq ranks' sum is the clip's mean
+            clip = self._loss(latents, text_emb, noise, draws.t) / seq
+            total = clip / data
+            prior = None
+            if self.prior_preservation is not None and class_images is not None:
+                lat2 = self._encode(class_images, draws.class_vae_noise)[:, None]  # [b, 1, h, w, 4]
+                with seq_mesh_scope(None if mesh is None else mesh.without_seq()):
+                    prior = self.prior_preservation * self._loss(lat2, class_text_emb, draws.class_noise,
+                                                                 draws.class_t)
+                total = total + prior / (data * seq)
+            total.backward()
+
+        grads = {
+            n: p.grad.float() if p.grad is not None else torch.zeros_like(p, dtype=torch.float32)
+            for n, p in self.trainable.items()
+        }
+        loss = clip.detach().clone()
+        if mesh is not None:
+            grads = self._reduce_grads(grads)
+            loss = mesh.seq_sum(loss)
+        if prior is not None:
+            loss = loss + prior.detach()
 
         # optax.clip_by_global_norm: g unchanged if |g| < max_norm, else g / |g| * max_norm;
         # a parameter the forward did not reach has a zero gradient (still decayed), as in JAX
-        grads = {
-            n: p.grad.float() if p.grad is not None else torch.zeros_like(state["master"][n])
-            for n, p in self.trainable.items()
-        }
         g_norm = torch.sqrt(sum(g.square().sum() for g in grads.values()))
+        state["grad_norm"] = g_norm  # before clipping, as optax's clip_by_global_norm reads it
         keep = g_norm < self.max_grad_norm
         for n, g in grads.items():
             state["master"][n].grad = torch.where(keep, g, g / g_norm * self.max_grad_norm)
@@ -306,12 +350,33 @@ class DDPMTrainer:
             group["lr"] = self.lr(state["step"])
         opt.step()
         with torch.no_grad():
-            for n, master in state["master"].items():
-                param = self.trainable[n]
-                if param is not master:
-                    param.copy_(master)
+            self._write_back(state)
         state["step"] += 1
-        return loss.detach()
+        return loss
+
+    def _reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The whole gradients on every rank: each rank's summed over 'data'
+        and 'seq' (one flat buffer), the tensor-split ones gathered over 'tensor'."""
+        mesh = self.mesh
+        names = list(grads)
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        mesh.data_sum(mesh._sum(flat, "seq"))
+        out, i = {}, 0
+        for n in names:
+            g = flat[i : i + grads[n].numel()].view(grads[n].shape)
+            i += grads[n].numel()
+            out[n] = tensor_gather(g, *self.split[n], mesh=mesh) if n in self.split else g
+        return out
+
+    def _write_back(self, state) -> None:
+        """Each trainable parameter from its master: this rank's block of it
+        where the parameter is split over 'tensor', rounded to the model dtype."""
+        for n, master in state["master"].items():
+            param = self.trainable[n]
+            if n in self.split:
+                param.copy_(tensor_block(master, *self.split[n], mesh=self.mesh))
+            elif param is not master:
+                param.copy_(master)
 
     def step(self, state, images, text_emb, generator: torch.Generator, class_images=None, class_text_emb=None):
         """One update on images [f, h, w, 3] in [-1, 1] with text_emb [1, 77, C] (cond);

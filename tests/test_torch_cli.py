@@ -13,8 +13,9 @@ threshold: every map the port's masks threshold is recorded and must keep
 clear of its threshold by more than BAND, so no pixel can flip.
 
 Also: every shipped config parses to the JAX package's dict and wires its
-controllers through the port; the streaming branches raise on a mesh; the
-edit CLI's out-of-memory fallback; a config whose
+controllers through the port; the streaming branches under `sharding:` as
+a world of one equal their runs without a mesh; the edit CLI's
+out-of-memory fallback; a config whose
 pipeline target names the JAX package builds the port's class with jax never
 imported (`python -m fatezero_tpu_torch.cli.edit --config`, in a
 subprocess); the generation-mode guard; the payload budget gate (replay at
@@ -191,12 +192,21 @@ def test_generation_mode_guard():
     ],
     ids=["sharding", "save_attention_maps", "save_swap", "generation"],
 )
-def test_unported_paths_raise(over):
-    """On a device mesh the streaming branches raise before any work, naming
-    their queue item; a mesh of more devices than processes raises without a
-    process group."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        cli.test(config="x.yaml", device="cpu", sharding={"mesh": "auto"}, **over)
+def test_unported_paths_raise(parity, tmp_path, over):
+    """Each streaming branch runs under `sharding: {mesh: auto}` in one
+    process, a world of one, and writes what the run without a mesh writes:
+    the same artifact names and the same videos, bit for bit. A mesh of more
+    devices than processes raises without a process group."""
+    runs = []
+    for name, sharding in (("plain", None), ("mesh", {"mesh": "auto"})):
+        d = _demo(parity["frames"], pretrained_model_path=parity["ckpt"], logdir=str(tmp_path / name))
+        d["editing_config"].update(over.get("editing_config", {}))
+        d.update({k: v for k, v in over.items() if k != "editing_config"}, sharding=sharding)
+        runs.append(cli.test(**d, device="cpu"))
+    (plain, pvideos), (mesh, mvideos) = runs
+    assert _names(mesh) == _names(plain) and len(mvideos) == len(pvideos) > 0
+    for a, b in zip(mvideos, pvideos):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(RuntimeError, match="needs a process group"):
         cli.run(DEMO, mesh="1,4,2", device="cpu")
 

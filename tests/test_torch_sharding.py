@@ -26,7 +26,8 @@ reference read the same inputs whatever their hash seeds.
   guards: a frame count the mesh does not divide, a head count it does not
   divide, a UNet run on a mesh it was not split for, a collective on a torn
   down group, a mesh larger than the processes without a process group.
-* The install check (scripts/check_install.py) runs its main here.
+* The install check (scripts/check_install.py) runs its main here, the
+  training collectives' backward in its gloo world of one included.
 
 Every sum over ranks runs in another order than the one process's sums, so
 the module and edit outputs agree to rounding (measured ~1e-6 relative),
@@ -393,3 +394,4 @@ def test_install_check_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "card: missing" in out and "K1, K2, K3 vs plain: missing (no card)" in out
     assert "gloo process group: ok" in out and "native frame loader:" in out
+    assert "backward through _SeqSum and f/g" in out

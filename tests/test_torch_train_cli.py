@@ -247,11 +247,27 @@ def test_resume_from(setup, tmp_path, monkeypatch):
     assert chunks == [1] and state["step"] == 3
 
 
-def test_multi_device_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        cli.train(config="x.yaml", sharding={"mesh": "auto"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        cli.run(TUNE, mesh="1,4,2")
+def test_multi_device_raises(setup, tmp_path):
+    """Tuning under `sharding: {mesh: auto}` in one process, a world of one,
+    writes what the run without a mesh writes: the same file names, the same
+    checkpoint and validation files byte for byte (but log.log, config.yml
+    and phase_timings.json, which hold the run's folder and seconds), the
+    same masters. A mesh of more devices than processes raises without a
+    process group."""
+    runs = []
+    for name, sharding in (("plain", None), ("mesh", {"mesh": "auto"})):
+        d = _tune(setup["frames"], setup["ckpt"], str(tmp_path / name), learning_rate=1e-4, sharding=sharding)
+        runs.append(cli.train(**d, device="cpu"))
+    (plain, pstate), (mesh, mstate) = runs
+    assert _names(mesh) == _names(plain)
+    for name in _names(plain):
+        if name not in ("log.log", "config.yml", "phase_timings.json"):
+            with open(os.path.join(plain, name), "rb") as a, open(os.path.join(mesh, name), "rb") as b:
+                assert a.read() == b.read(), name
+    for n, m in pstate["master"].items():
+        assert torch.equal(mstate["master"][n], m), n
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        cli.run(TUNE, mesh="1,4,2", device="cpu")
 
 
 def test_runs_in_one_second_get_their_own_folders(tmp_path, monkeypatch):
