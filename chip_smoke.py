@@ -116,7 +116,7 @@ Phases, each synchronised and timed:
       path's edit on the same trajectory (bf16, informational); the fp32
       witness at full width (the streaming edit against the fused stored
       edit, within one bf16 unit of the largest value) runs on the mesh
-      phase's world of one (c7);
+      phase's world of one (c8);
    c4. the dataset x p2p-grid sweep, `fatezero_tpu_torch.cli.dataset_sweep.run`,
       on config/dataset_sweep.yaml as shipped (its grid of self_replace_steps
       0.5 and 0.9, its editing block: one replace edit, 3 steps) but for
@@ -136,7 +136,18 @@ Phases, each synchronised and timed:
    c6. the C++ frame loader (`[native]`): bit-equal to PIL at native
       resolution where it builds; where it does not, why, and
       native_loader=True must raise;
-   c7. the edit, tuning and the streaming store on a (1,2,2) device mesh
+   c7. the port's headline bench, fatezero_tpu_torch/scripts/bench.py, at
+      full width (teaser model, FRAMES x RES^2, bf16; BENCH_RUNS): `main` in
+      this process, fused at 10 steps with viz (a full capture under the 8
+      GB budget), fused with BENCH_REPLAY=1 at 10 steps and stream at 3,
+      each `[bench]` line its JSON object and launches: bench.py's keys with
+      the card's, the plan, the bench's own K1 count of its timed passes
+      against the sites' shapes, its probe's K2 and K3 once each, every
+      launch of the run against its count; then `python3 -m
+      fatezero_tpu_torch.scripts.bench` as a process at BENCH_MODULE_STEPS
+      steps (it re-executes itself under PYTHONHASHSEED=0) with its last
+      line parsed and held to the same checks;
+   c8. the edit, tuning and the streaming store on a (1,2,2) device mesh
       (`mesh_phase`) at full width, FRAMES x RES^2, through
       fatezero_tpu_torch/scripts/dryrun_mesh.py: four gloo ranks sharing the
       card, spawned once for three jobs, against a world of one running the
@@ -968,7 +979,9 @@ def k1_per_forward(unet, latent, kind, materialized=None):
     controlled self site, the value-space cross edit at each controlled cross
     site but those of `materialized` queries); 'inline' (the 3-row
     InlineEditContext under a latent blend: two attentions at each controlled
-    self site, every controlled cross site materialised); 'stream' (the
+    self site, every controlled cross site materialised); 'inline, no blend'
+    (the same without a blend: two attentions at each controlled site, none
+    at the cross sites of `materialized` queries); 'stream' (the
     streaming store's StoreContext and EditContext: every controlled site
     materialised, so only the sites past the controlled size run K1)."""
     from fatezero_tpu_torch.ops.flash_attention import FLASH_MIN_QUERIES
@@ -988,6 +1001,8 @@ def k1_per_forward(unet, latent, kind, materialized=None):
             n += 1
         elif kind == "inline":
             n += 2
+        elif kind == "inline, no blend":
+            n += 2 + 2 * (s != materialized)
         else:
             n += 2 + (s != materialized)
     return n
@@ -1542,13 +1557,14 @@ def tiny_cli_reference():
     torch.cuda.empty_cache()
 
 
-def cli_k1_expected(unet, latent, steps, n_prompts, plan, window):
+def cli_k1_expected(unet, latent, steps, n_prompts, plan, window, viz=True):
     """K1 launches of one CLI edit run from the sites' shapes: the inversion
     captures the plan's rows (a plain forward elsewhere); each prompt's edit
-    (viz on, so the (latent/4)^2 cross sites materialise) runs stored where
-    the payload serves it, replays (a capture-only forward, then the edit)
-    up to the edit window, and runs the identity-gated tail stored."""
-    s16 = (latent // 4) ** 2
+    (with viz, as the CLI runs it, the (latent/4)^2 cross sites materialise)
+    runs stored where the payload serves it, replays (a capture-only forward,
+    then the edit) up to the edit window, and runs the identity-gated tail
+    stored."""
+    s16 = (latent // 4) ** 2 if viz else None
     per = {kind: k1_per_forward(unet, latent, kind, s16) for kind in ("plain", "capture", "capture_only", "edit")}
     k = 0 if plan is None else plan[1]
     w_id = steps if k == steps else max(window, k)
@@ -2921,6 +2937,114 @@ def mesh_phase():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------------------- the port's bench
+BENCH_RUNS = (  # (tag, the bench's knobs): its modes at full width, cut from 50 steps
+    ("fused", {"BENCH_STEPS": "10", "BENCH_VIZ": "1"}),
+    ("replay", {"BENCH_STEPS": "10", "BENCH_REPLAY": "1"}),
+    ("stream", {"BENCH_STEPS": "3", "BENCH_MODE": "stream"}),
+)
+BENCH_MODULE_STEPS = 3  # the run of `python3 -m fatezero_tpu_torch.scripts.bench` as a process
+BENCH_DETAIL = {"invert_s", "edit_s", "edit_viz_s", "flash_grad_err", "backend", "mode", "stored_payload",
+                "stored_rows", "model_config", "device", "peak_bytes", "k1_launches", "k2_launches", "k3_launches"}
+
+
+def bench_k1_expected(unet, latent, knobs):
+    """K1 launches of a bench run from the sites' shapes: (the timed inversion
+    and edit, which the bench counts itself; every launch of the run: the
+    probe's one, the warm-up and timed passes, and with viz its two edits)."""
+    steps = int(knobs["BENCH_STEPS"])
+    viz = knobs.get("BENCH_VIZ", "1") == "1"
+    if knobs.get("BENCH_MODE") == "stream":
+        timed = 2 * steps * k1_per_forward(unet, latent, "stream")
+        return timed, 1 + 2 * timed
+    if knobs.get("BENCH_REPLAY") == "1":
+        # the teaser's controller has no blend: edit_fast replays inline, one
+        # 3-row forward a step (with viz the (latent/4)^2 cross sites materialise)
+        invert = steps * k1_per_forward(unet, latent, "plain")
+        edit, edit_viz = (steps * k1_per_forward(unet, latent, "inline, no blend", m)
+                          for m in (None, (latent // 4) ** 2))
+        return invert + edit, 1 + 2 * (invert + edit) + (2 * edit_viz if viz else 0)
+    # a full capture (the smoke requires it), which reads no edit window
+    plan = (0, steps)
+    invert = cli_k1_expected(unet, latent, steps, 0, plan, steps)[0]
+    edit = cli_k1_expected(unet, latent, steps, 1, plan, steps, viz=False)[0] - invert
+    edit_viz = cli_k1_expected(unet, latent, steps, 1, plan, steps)[0] - invert
+    return invert + edit, 1 + 2 * (invert + edit) + (2 * edit_viz if viz else 0)
+
+
+def check_bench_result(tag, result, knobs, unet):
+    """bench.py's keys plus the card's; finite times; the plan; K1 against the
+    sites' shapes, K2 = K3 = 1 (the probe)."""
+    d = result["detail"]
+    steps = int(knobs["BENCH_STEPS"])
+    stream = knobs.get("BENCH_MODE") == "stream"
+    replay = knobs.get("BENCH_REPLAY") == "1"
+    timed_k1, _ = bench_k1_expected(unet, RES // 8, knobs)
+    want_rows = None if stream or replay else [0, steps]
+    problems = []
+    if set(result) != {"metric", "value", "unit", "vs_baseline", "detail"} or set(d) != BENCH_DETAIL:
+        problems.append(f"keys {sorted(result)} / {sorted(d)}")
+    if not all(np.isfinite([result["value"], result["vs_baseline"], d["invert_s"], d["edit_s"]])):
+        problems.append("a time is not finite")
+    if d["backend"] != "cuda" or d["mode"] != ("stream" if stream else "fused"):
+        problems.append(f"backend {d['backend']} mode {d['mode']}")
+    if d["stored_rows"] != want_rows or d["stored_payload"] is not (want_rows is not None):
+        problems.append(f"stored_rows {d['stored_rows']} (want {want_rows}), stored_payload {d['stored_payload']}")
+    if d["k1_launches"] != timed_k1 or d["k2_launches"] != 1 or d["k3_launches"] != 1:
+        problems.append(f"K1 {d['k1_launches']} (the shapes give {timed_k1}), K2 {d['k2_launches']}, "
+                        f"K3 {d['k3_launches']} (want 1 each)")
+    if (d["edit_viz_s"] is None) is (not stream and knobs.get("BENCH_VIZ", "1") == "1"):
+        problems.append(f"edit_viz_s {d['edit_viz_s']}")
+    if problems:
+        raise AssertionError(f"bench {tag}: " + "; ".join(problems))
+
+
+def bench_phase(kernels, reset_counts, check_plain):
+    """The port's headline bench (fatezero_tpu_torch/scripts/bench.py) at full
+    width, FRAMES x RES^2, bf16, teaser model: `main` in this process in each
+    of BENCH_RUNS, every launch count set to 0 before and read after each;
+    then the module as a process of its own (its re-execution under
+    PYTHONHASHSEED=0 and its one JSON line). Returns each kernel's launches
+    over the in-process runs."""
+    import subprocess
+
+    import torch
+
+    from fatezero_tpu_torch.models.loader import load_models
+    from fatezero_tpu_torch.scripts import bench
+
+    unet = load_models("random:sd", bench.TEASER, torch.bfloat16, device="meta").unet  # the sites' shapes
+    totals = {fn.__name__: 0 for fn in kernels}
+    for tag, knobs in BENCH_RUNS:
+        reset_counts()
+        result, _ = phase(f"bench {tag}", lambda: bench.main("cuda", "random:sd", env=knobs))
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        log(f"[bench] {tag} {json.dumps(knobs)}: {json.dumps(result)}; launches {json.dumps(launches)}")
+        check_plain(f"bench {tag}")
+        check_bench_result(tag, result, knobs, unet)
+        _, k1_all = bench_k1_expected(unet, RES // 8, knobs)
+        if (launches["flash_forward"], launches["flash_dq"], launches["flash_dkv"]) != (k1_all, 1, 1):
+            raise AssertionError(f"bench {tag}: K1/K2/K3 launched {launches}, the run gives {k1_all}/1/1")
+        for name, n in launches.items():
+            totals[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONHASHSEED",) and not k.startswith("BENCH_")}
+    knobs = {"BENCH_STEPS": str(BENCH_MODULE_STEPS)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fatezero_tpu_torch.scripts.bench"], cwd=REPO,
+                          env={**env, **knobs}, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"python3 -m fatezero_tpu_torch.scripts.bench exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    result = json.loads(lines[-1])
+    log(f"[bench] module {json.dumps(knobs)}, {wall:.1f} s as a process: {json.dumps(result)}")
+    check_bench_result("module", result, knobs, unet)
+    return totals
+
+
 def run_eval_paths(kernels, reset_counts, check_plain):
     """The sweep, the evaluation of its folders and the frame loader (c4-c6)."""
     import shutil
@@ -3202,7 +3326,12 @@ def main() -> int:
     # of its result folders card vs CPU, the C++ frame loader
     run_eval_paths(kernels, reset_counts, check_plain)
 
-    # ---- main path c7: the edit on a device mesh (ranks spawned on the card)
+    # ---- main path c7: the port's headline bench, before the mesh: its
+    # tensors and cache are given back before the ranks are spawned
+    bench_launches, _ = phase("bench (fatezero_tpu_torch.scripts.bench)", lambda: bench_phase(
+        kernels, reset_counts, check_plain))
+
+    # ---- main path c8: the edit on a device mesh (ranks spawned on the card)
     mesh_phase()
 
     # ---- main path d: the flash-variants probe, K1b's path. Its own check
@@ -3239,11 +3368,12 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         k1.entry("K1 flash_attention forward", "fatezero_tpu_torch/csrc/flash_fwd.cu",
-                 "fatezero_tpu/ops/flash_attention.py:93", edit_launches["flash_forward"]),
+                 "fatezero_tpu/ops/flash_attention.py:93",
+                 edit_launches["flash_forward"] + bench_launches["flash_forward"]),
         k2.entry("K2 flash_attention backward dQ", "fatezero_tpu_torch/csrc/flash_bwd.cu",
-                 "fatezero_tpu/ops/flash_attention.py:185", tune_launches["flash_dq"]),
+                 "fatezero_tpu/ops/flash_attention.py:185", tune_launches["flash_dq"] + bench_launches["flash_dq"]),
         k3.entry("K3 flash_attention backward dK/dV", "fatezero_tpu_torch/csrc/flash_bwd.cu",
-                 "fatezero_tpu/ops/flash_attention.py:220", tune_launches["flash_dkv"]),
+                 "fatezero_tpu/ops/flash_attention.py:220", tune_launches["flash_dkv"] + bench_launches["flash_dkv"]),
         k4.entry("K4 layer_norm", "fatezero_tpu_torch/csrc/layer_norm.cu",
                  "fatezero_tpu/ops/fused_norm.py:47", ln_launches["layer_norm_kernel"]),
         k1b.entry("K1b flash_bf16 forward (bf16 P)", "fatezero_tpu_torch/csrc/flash_fwd_bf16.cu",

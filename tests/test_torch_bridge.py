@@ -100,7 +100,8 @@ def test_imports_without_jax():
         "        'fatezero_tpu_torch.scripts.dryrun_mesh', 'fatezero_tpu_torch.scripts.check_install',\n"
         "        'fatezero_tpu_torch.common.logdir', 'fatezero_tpu_torch.trainer.ddpm_trainer',\n"
         "        'fatezero_tpu_torch.ops.video_ops', 'fatezero_tpu_torch.models.attention',\n"
-        "        'fatezero_tpu_torch.models.layers', 'fatezero_tpu_torch.models.unet3d'} <= set(sys.modules)\n"
+        "        'fatezero_tpu_torch.models.layers', 'fatezero_tpu_torch.models.unet3d',\n"
+        "        'fatezero_tpu_torch.scripts.bench'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -124,6 +125,7 @@ def test_no_import_of_jax_anywhere_in_the_port():
                 [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             bad += [(path, n) for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "fatezero_tpu")]
     assert os.path.join(REPO, "fatezero_tpu_torch", "parallel", "sharding.py") in paths
+    assert os.path.join(REPO, "fatezero_tpu_torch", "scripts", "bench.py") in paths
     assert len(paths) > 30 and not bad, bad
 
 
@@ -154,9 +156,10 @@ def test_entry_points_default_to_cuda():
     from fatezero_tpu_torch.models.loader import _load_flax_native, _load_pretrained
     from fatezero_tpu_torch.ops.schedule import make_schedule
     from fatezero_tpu_torch.pipelines.fatezero_pipeline import FateZeroPipeline
+    from fatezero_tpu_torch.scripts import bench
 
     for fn in (load_models, FateZeroPipeline.__init__, make_schedule, edit_test, train, _load_pretrained,
-               _load_flax_native):
+               _load_flax_native, bench.main, bench.run):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
 
 

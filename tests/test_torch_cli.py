@@ -304,7 +304,9 @@ def test_pipeline_target_maps_to_the_port(parity, tmp_path):
         "assert not any(k == 'jax' or k.startswith(('jax.', 'fatezero_tpu.')) for k in sys.modules if sys.modules[k] is not None)\n"
         "print('ok')\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    # one thread, as in this process: the tier-1 run's workers share the host
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
     assert os.path.exists(os.path.join(tmp_path, "run", "grid.gif"))
 

@@ -36,19 +36,11 @@ not bit for bit; data movement (the gathers) is exact.
 import copy
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
-from fatezero_tpu.models.tokenizer import StubTokenizer as JStubTokenizer
-from fatezero_tpu.models.unet3d import UNet3DConfig as JConfig
-from fatezero_tpu.models.unet3d import UNetPseudo3DConditionModel as JUNet
-from fatezero_tpu.parallel.sharding import make_mesh as jmake_mesh
-from fatezero_tpu.pipelines.fatezero_pipeline import FateZeroPipeline as JPipeline
-from fatezero_tpu.ptp.controller import make_controller as jmake_controller
 from fatezero_tpu_torch.convert.to_flax import unet_state_to_flax
 from fatezero_tpu_torch.models.attention import Attention, TemporalAttention
 from fatezero_tpu_torch.models.layers import FeedForward, FusedGroupNorm
@@ -63,6 +55,8 @@ from fatezero_tpu_torch.parallel.sharding import (
 from fatezero_tpu_torch.scripts import dryrun_mesh as D
 
 torch.set_num_threads(1)
+# The JAX package is imported inside the tests that run it: the spawned ranks
+# import this module for their functions and need only the port.
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES, RES, STEPS = 4, 128, 2
 SPECS = {"prev_first": [-1, "first"], "mid": ["mid"], "prev2_last": [-2, "last"], "next": [1]}
@@ -362,6 +356,16 @@ def test_stored_edit_matches_jax_sharded(mesh122):
     """The JAX package's pipeline sharded over (1,2,2) of the 8 virtual XLA
     devices, on the same weights (convert/to_flax.py), latents, embeddings
     and controller, against the port's (1,2,2) ranks."""
+    import jax
+    import jax.numpy as jnp
+
+    from fatezero_tpu.models.tokenizer import StubTokenizer as JStubTokenizer
+    from fatezero_tpu.models.unet3d import UNet3DConfig as JConfig
+    from fatezero_tpu.models.unet3d import UNetPseudo3DConditionModel as JUNet
+    from fatezero_tpu.parallel.sharding import make_mesh as jmake_mesh
+    from fatezero_tpu.pipelines.fatezero_pipeline import FateZeroPipeline as JPipeline
+    from fatezero_tpu.ptp.controller import make_controller as jmake_controller
+
     data = torch.load(mesh122["path"], weights_only=False)
     cfg = data["unet_cfg"]
     jcfg = JConfig(block_out_channels=cfg.block_out_channels, attention_head_dim=cfg.attention_head_dim,

@@ -43,29 +43,21 @@ as tests/test_torch_streaming.py holds trajectories.
 """
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from fatezero_tpu.models.tokenizer import StubTokenizer as JStubTokenizer
-from fatezero_tpu.models.unet3d import UNet3DConfig as JConfig
-from fatezero_tpu.models.unet3d import UNetPseudo3DConditionModel as JUNet
-from fatezero_tpu.parallel.sharding import make_mesh as jmake_mesh
-from fatezero_tpu.pipelines.fatezero_pipeline import FateZeroPipeline as JPipeline
-from fatezero_tpu.ptp.controller import make_controller as jmake_controller
-from fatezero_tpu.ptp.store import AttentionStore as JStore
 from fatezero_tpu_torch.convert.to_flax import unet_state_to_flax
 from fatezero_tpu_torch.parallel.sharding import Mesh, tensor_block
 from fatezero_tpu_torch.ptp.context import STORE_KEYS
 from fatezero_tpu_torch.ptp.store import CROSS_KEYS, AttentionStore
 from fatezero_tpu_torch.scripts import dryrun_mesh as D
 from fatezero_tpu_torch.pipelines import fatezero_pipeline as FP
-from test_torch_edit_modes import _Thresholds
 from test_torch_sharding import TEASER, _cli_config, _fan_in_state
 
 torch.set_num_threads(1)
+# The JAX package is imported inside the tests that run it: the spawned ranks
+# import this module for their functions and need only the port.
 FRAMES, RES, STEPS = 4, 128, 2
 EDITS = {
     "teaser": dict(TEASER, mode="stored"),
@@ -163,6 +155,8 @@ def run(tmp_path_factory):
     ranks = D.launch(_rank, (1, 2, 2), "cpu", args=(path, str(tmp / "disk"), (cfg, str(tmp / "work"))),
                      workdir=str(tmp))
     one = Mesh((1, 1, 1), "cpu")
+    from test_torch_edit_modes import _Thresholds  # imports the JAX package, which the ranks need not
+
     thresholds, original = _Thresholds(), FP.blend_mask
     FP.blend_mask = thresholds
     try:
@@ -256,6 +250,17 @@ def test_streaming_edit_matches_jax_sharded(run):
     """The JAX package's pipeline sharded over (1,2,2) of the 8 virtual XLA
     devices: the streaming inversion into its store, then the teaser's edit
     against it, on the port's weights, latents and embeddings."""
+    import jax
+    import jax.numpy as jnp
+
+    from fatezero_tpu.models.tokenizer import StubTokenizer as JStubTokenizer
+    from fatezero_tpu.models.unet3d import UNet3DConfig as JConfig
+    from fatezero_tpu.models.unet3d import UNetPseudo3DConditionModel as JUNet
+    from fatezero_tpu.parallel.sharding import make_mesh as jmake_mesh
+    from fatezero_tpu.pipelines.fatezero_pipeline import FateZeroPipeline as JPipeline
+    from fatezero_tpu.ptp.controller import make_controller as jmake_controller
+    from fatezero_tpu.ptp.store import AttentionStore as JStore
+
     data = torch.load(run["path"], weights_only=False)
     cfg = data["unet_cfg"]
     jcfg = JConfig(block_out_channels=cfg.block_out_channels, attention_head_dim=cfg.attention_head_dim,

@@ -36,19 +36,10 @@ the CPU).
 """
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from fatezero_tpu.models.unet3d import UNet3DConfig as JConfig
-from fatezero_tpu.models.unet3d import UNetPseudo3DConditionModel as JUNet
-from fatezero_tpu.models.vae import AutoencoderKL as JVAE
-from fatezero_tpu.models.vae import VAEConfig as JVAEConfig
-from fatezero_tpu.parallel.sharding import make_mesh as jmake_mesh
-from fatezero_tpu.parallel.sharding import shard_params
-from fatezero_tpu.trainer import ddpm_trainer as JT
 from fatezero_tpu_torch.convert.from_flax import unet_state_from_flax
 from fatezero_tpu_torch.convert.to_flax import unet_state_to_flax, vae_state_to_flax
 from fatezero_tpu_torch.models.attention import Attention, TemporalAttention
@@ -60,6 +51,8 @@ from fatezero_tpu_torch.trainer.ddpm_trainer import Draws
 from test_torch_sharding import _fan_in_state
 
 torch.set_num_threads(1)
+# The JAX package is imported inside the tests that run it: the spawned ranks
+# import this module for their functions and need only the port.
 FRAMES, RES, LR, PRIOR = 4, 128, 1e-3, 0.5
 SPECS = {"prev_first": [-1, "first"], "mid": ["mid"], "prev2_last": [-2, "last"], "next": [1], "hop": [-3, "first"]}
 UPDATES = {  # name -> train_job keyword arguments
@@ -155,6 +148,9 @@ def _rank(mesh, path, updates, draws):
 # ------------------------------------------------------------------ fixtures
 def _jax_draws(key):
     """The draws JAX's _update makes from `key` (tests/test_torch_trainer.py)."""
+    import jax
+    import jax.numpy as jnp
+
     rng_t, rng_n, rng_vae, _ = jax.random.split(key, 4)
     lat = (FRAMES, RES // 8, RES // 8, 4)
     return Draws(t=torch.tensor(np.asarray(jax.random.randint(rng_t, (1,), 0, 1000))).long(),
@@ -171,6 +167,8 @@ def setup(tmp_path_factory):
     data["vae"] = _fan_in_state(data["vae"], seed=4)
     data["class_images"] = np.random.default_rng(5).uniform(-1, 1, (1, RES, RES, 3)).astype(np.float32)
     torch.save(data, path)
+    import jax
+
     key = jax.random.PRNGKey(0)
     draws = _jax_draws(key)
     ranks = D.launch(_rank, (1, 2, 2), "cpu", args=(path, UPDATES, draws), workdir=str(tmp))
@@ -253,6 +251,16 @@ def test_tensor_ranks_hold_one_update(setup):
 def test_update_matches_jax_sharded(setup):
     """The JAX package's DDPMTrainer, its params sharded over (1,2,2) of the
     virtual XLA devices, one AdamW update with the same weights and draws."""
+    import jax
+    import jax.numpy as jnp
+    from fatezero_tpu.models.unet3d import UNet3DConfig as JConfig
+    from fatezero_tpu.models.unet3d import UNetPseudo3DConditionModel as JUNet
+    from fatezero_tpu.models.vae import AutoencoderKL as JVAE
+    from fatezero_tpu.models.vae import VAEConfig as JVAEConfig
+    from fatezero_tpu.parallel.sharding import make_mesh as jmake_mesh
+    from fatezero_tpu.parallel.sharding import shard_params
+    from fatezero_tpu.trainer import ddpm_trainer as JT
+
     data = torch.load(setup["path"], weights_only=False)
     cfg = data["unet_cfg"]
     jcfg = JConfig(block_out_channels=cfg.block_out_channels, attention_head_dim=cfg.attention_head_dim,
