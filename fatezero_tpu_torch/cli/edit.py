@@ -141,88 +141,91 @@ def test(
 
     source_prompt = editing_config.get("source_prompt", dataset_config.get("prompt", ""))
     num_steps = int(editing_config.get("num_inference_steps", 50))
-    emb_src = pipe.encode_prompt(source_prompt)
-    with timer.phase("vae_encode"):
-        latents = pipe.encode_video(torch.from_numpy(np.ascontiguousarray(video)).to(device))
+    # `profile: true`: the run from the prompts' encoding to the last edit under
+    # the profiler, its phases and the program's spans inside it
+    with trace(os.path.join(logdir, "trace") if profile and writer else None):
+        emb_src = pipe.encode_prompt(source_prompt)
+        with timer.phase("vae_encode"):
+            latents = pipe.encode_video(torch.from_numpy(np.ascontiguousarray(video)).to(device))
 
-    sample_seeds = [int(s) for s in editing_config.get("sample_seeds", [seed])]
-    use_fused = not disk_store and not editing_config.get("save_attention_maps", False)
+        sample_seeds = [int(s) for s in editing_config.get("sample_seeds", [seed])]
+        use_fused = not disk_store and not editing_config.get("save_attention_maps", False)
 
-    def make_logger(subdir: str = "") -> P2pSampleLogger:
-        return P2pSampleLogger(
-            editing_prompts=editing_config.get("editing_prompts", [source_prompt]),
-            logdir=os.path.join(logdir, subdir) if subdir else logdir,
-            source_prompt=source_prompt,
-            num_inference_steps=num_steps,
-            guidance_scale=float(editing_config.get("guidance_scale", 7.5)),
-            sample_seeds=sample_seeds,
-            p2p_config=editing_config.get("p2p_config", {}),
-            use_inversion_attention=bool(editing_config.get("use_inversion_attention", True)),
-            strength=editing_config.get("strength"),
-            annotate=bool(editing_config.get("annotate", False)),
-            use_fused_path=use_fused,
-            writer=writer,
+        def make_logger(subdir: str = "") -> P2pSampleLogger:
+            return P2pSampleLogger(
+                editing_prompts=editing_config.get("editing_prompts", [source_prompt]),
+                logdir=os.path.join(logdir, subdir) if subdir else logdir,
+                source_prompt=source_prompt,
+                num_inference_steps=num_steps,
+                guidance_scale=float(editing_config.get("guidance_scale", 7.5)),
+                sample_seeds=sample_seeds,
+                p2p_config=editing_config.get("p2p_config", {}),
+                use_inversion_attention=bool(editing_config.get("use_inversion_attention", True)),
+                strength=editing_config.get("strength"),
+                annotate=bool(editing_config.get("annotate", False)),
+                use_fused_path=use_fused,
+                writer=writer,
+            )
+
+        # capture the controlled sites' payloads during the inversion itself
+        # (cross probabilities + self (q, k), on the device), so that the edits
+        # run the bare 2-row CFG forward; `stored_attention: false` replays
+        # instead, for workloads whose payload exceeds the device. The save/swap
+        # edit (`use_inversion_attention: false`) reads only the trajectory, so
+        # it captures nothing.
+        use_stored = bool(editing_config.get("stored_attention", True)) and bool(
+            editing_config.get("use_inversion_attention", True)
         )
-
-    # capture the controlled sites' payloads during the inversion itself
-    # (cross probabilities + self (q, k), on the device), so that the edits
-    # run the bare 2-row CFG forward; `stored_attention: false` replays
-    # instead, for workloads whose payload exceeds the device. The save/swap
-    # edit (`use_inversion_attention: false`) reads only the trajectory, so
-    # it captures nothing.
-    use_stored = bool(editing_config.get("stored_attention", True)) and bool(
-        editing_config.get("use_inversion_attention", True)
-    )
-    traj = stored = capture_rows = inv_store = traj_host = None
-    if editing_config.get("use_invertion_latents", True):
-        if use_fused:
-            traj, stored, capture_rows = _fused_inversion(pipe, make_logger(), latents, emb_src, num_steps,
-                                                          use_stored, timer, log, on_card)
-        else:
-            inv_store = AttentionStore(disk_store=disk_store, store_dir=logdir, mesh=mesh)
-            with timer.phase("inversion"):
-                traj_host = pipe.invert(latents, emb_src, num_steps, store=inv_store)
-            log.info(
-                "streaming store: %d steps, %d bytes a step, %.3f s of copies a step",
-                inv_store.num_steps, max(inv_store.step_bytes, default=0),
-                float(np.mean(inv_store.copy_seconds)) if inv_store.copy_seconds else 0.0,
-            )
-            # the inversion's average cross attention, drawn per token
-            from fatezero_tpu_torch.ptp.visualization import show_cross_attention
-
-            average = inv_store.get_average_attention(CROSS_KEYS)  # every rank's frames and heads
-            if writer:
-                show_cross_attention(
-                    pipe.tokenizer,
-                    source_prompt,
-                    {k: [m.numpy() for m in v] for k, v in average.items()},
-                    res=int(latents.shape[2]) // 4,
-                    save_path=os.path.join(logdir, "cross_attention", "attn.gif"),
+        traj = stored = capture_rows = inv_store = traj_host = None
+        if editing_config.get("use_invertion_latents", True):
+            if use_fused:
+                traj, stored, capture_rows = _fused_inversion(pipe, make_logger(), latents, emb_src, num_steps,
+                                                              use_stored, timer, log, on_card)
+            else:
+                inv_store = AttentionStore(disk_store=disk_store, store_dir=logdir, mesh=mesh)
+                with timer.phase("inversion"):
+                    traj_host = pipe.invert(latents, emb_src, num_steps, store=inv_store)
+                log.info(
+                    "streaming store: %d steps, %d bytes a step, %.3f s of copies a step",
+                    inv_store.num_steps, max(inv_store.step_bytes, default=0),
+                    float(np.mean(inv_store.copy_seconds)) if inv_store.copy_seconds else 0.0,
                 )
+                # the inversion's average cross attention, drawn per token
+                from fatezero_tpu_torch.ptp.visualization import show_cross_attention
 
-    with timer.phase("editing"), trace(os.path.join(logdir, "trace") if profile and writer else None):
-        if traj is None and inv_store is None:
-            # generation mode: one run per sample seed from its seeded noise
-            videos = []
-            frames = int(video.shape[0])
-            for s in sample_seeds:
-                # the whole clip's noise, then this rank's frames
-                noise = generation_noise(s, (1, frames, *latents.shape[2:]))
-                noise = (noise if mesh is None else mesh.local_frames(noise)).to(device)
-                seed_traj = torch.stack([latents] * num_steps + [noise])
-                sub = f"seed_{s}" if len(sample_seeds) > 1 else ""
-                videos += make_logger(sub).log_sample_images(pipe, source_video, traj=seed_traj, emb_source=emb_src)
-        else:
-            videos = make_logger().log_sample_images(
-                pipe,
-                source_video,
-                traj=traj,
-                inv_store=inv_store,
-                inverted_latents=traj_host,
-                emb_source=emb_src,
-                stored=stored,
-                stored_row0=capture_rows[0] if (capture_rows and stored is not None) else 0,
-            )
+                average = inv_store.get_average_attention(CROSS_KEYS)  # every rank's frames and heads
+                if writer:
+                    show_cross_attention(
+                        pipe.tokenizer,
+                        source_prompt,
+                        {k: [m.numpy() for m in v] for k, v in average.items()},
+                        res=int(latents.shape[2]) // 4,
+                        save_path=os.path.join(logdir, "cross_attention", "attn.gif"),
+                    )
+
+        with timer.phase("editing"):
+            if traj is None and inv_store is None:
+                # generation mode: one run per sample seed from its seeded noise
+                videos = []
+                frames = int(video.shape[0])
+                for s in sample_seeds:
+                    # the whole clip's noise, then this rank's frames
+                    noise = generation_noise(s, (1, frames, *latents.shape[2:]))
+                    noise = (noise if mesh is None else mesh.local_frames(noise)).to(device)
+                    seed_traj = torch.stack([latents] * num_steps + [noise])
+                    sub = f"seed_{s}" if len(sample_seeds) > 1 else ""
+                    videos += make_logger(sub).log_sample_images(pipe, source_video, traj=seed_traj, emb_source=emb_src)
+            else:
+                videos = make_logger().log_sample_images(
+                    pipe,
+                    source_video,
+                    traj=traj,
+                    inv_store=inv_store,
+                    inverted_latents=traj_host,
+                    emb_source=emb_src,
+                    stored=stored,
+                    stored_row0=capture_rows[0] if (capture_rows and stored is not None) else 0,
+                )
     log.info("%s", timer)
     if not writer:
         return logdir, videos

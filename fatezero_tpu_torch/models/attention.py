@@ -28,6 +28,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from fatezero_tpu_torch.common.profiling import count, span, spanned
 from fatezero_tpu_torch.models.layers import FeedForward, FusedGroupNorm, FusedLayerNorm
 from fatezero_tpu_torch.ops.flash_attention import fused_attention
 from fatezero_tpu_torch.ops.video_ops import gather_sparse_kv, local_referenced_frames
@@ -77,6 +78,7 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(kv_dim, inner, bias=False, **kw)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, **kw)])
 
+    @spanned("fz.unet.attention")
     def forward(
         self,
         x: torch.Tensor,
@@ -120,23 +122,24 @@ class Attention(nn.Module):
         controlled = (
             attn_ctx is not None and place is not None and qh.shape[-2] <= MAX_CONTROLLED_TOKENS
         )
-        fast = None
-        if controlled:
-            fast = attn_ctx.value_space_attention(
-                qh, kh, vh, scale, place, is_cross, (b, f),
-                k_store=k_store, sparse_meta=sparse_meta,
-            )
-        if fast is not None:
-            out = fast.to(self.dtype)
-        elif controlled:
-            kb = kh.expand(b, f, *kh.shape[2:])
-            vb = vh.expand(b, f, *vh.shape[2:])
-            logits = torch.matmul(qh.to(self.dtype), kb.to(self.dtype).transpose(-1, -2)).float() * scale
-            probs5 = torch.softmax(logits, dim=-1).to(self.dtype)
-            probs5 = attn_ctx.process(probs5, place, is_cross)
-            out = torch.matmul(probs5.to(self.dtype), vb.to(self.dtype))
-        else:
+        if not controlled:
             out = fused_attention(qh, kh, vh, scale)
+        else:
+            with span("fz.ptp.site"):
+                out = attn_ctx.value_space_attention(
+                    qh, kh, vh, scale, place, is_cross, (b, f),
+                    k_store=k_store, sparse_meta=sparse_meta,
+                )
+                if out is not None:
+                    out = out.to(self.dtype)
+                else:
+                    count("ptp.materialised")
+                    kb = kh.expand(b, f, *kh.shape[2:])
+                    vb = vh.expand(b, f, *vh.shape[2:])
+                    logits = torch.matmul(qh.to(self.dtype), kb.to(self.dtype).transpose(-1, -2)).float() * scale
+                    probs5 = torch.softmax(logits, dim=-1).to(self.dtype)
+                    probs5 = attn_ctx.process(probs5, place, is_cross)
+                    out = torch.matmul(probs5.to(self.dtype), vb.to(self.dtype))
 
         return row_parallel_linear(self.to_out[0], _merge_heads5(out))  # [B, F, S, inner] -> proj
 
@@ -161,6 +164,7 @@ class TemporalAttention(nn.Module):
         nn.init.zeros_(self.to_out[0].weight)
         nn.init.zeros_(self.to_out[0].bias)
 
+    @spanned("fz.unet.temporal_attention")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, f, d, c = x.shape
         scale = self.dim_head**-0.5

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fatezero_tpu_torch.common.profiling import spanned
 from fatezero_tpu_torch.ops.fused_norm import _ln_math, group_norm, layer_norm
 from fatezero_tpu_torch.parallel.sharding import copy_to_tensor, current_seq_mesh, row_parallel_linear
 
@@ -81,6 +82,7 @@ class FeedForward(nn.Module):
             ]
         )
 
+    @spanned("fz.unet.feed_forward")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return row_parallel_linear(self.net[2], self.net[0](copy_to_tensor(x)))
 
@@ -131,6 +133,7 @@ class FusedGroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels, device=device))
         self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
 
+    @spanned("fz.unet.group_norm")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[-1]
         folded = x.reshape(*x.shape[: self.batch_dims], -1, c)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fatezero_tpu_torch.common.profiling import spanned
 from fatezero_tpu_torch.models.layers import FusedGroupNorm
 from fatezero_tpu_torch.ops.video_ops import (
     temporal_avgpool,
@@ -154,6 +155,7 @@ class ResnetBlockPseudo3D(nn.Module):
             PseudoConv3d(in_channels, out_channels, 1, **kw) if in_channels != out_channels else None
         )
 
+    @spanned("fz.unet.resnet")
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         h = self.conv1(F.silu(self.norm1(x)))
         h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from fatezero_tpu_torch.common.profiling import spanned
 from fatezero_tpu_torch.models.attention import SpatioTemporalTransformerModel
 from fatezero_tpu_torch.models.layers import FusedGroupNorm, TimestepEmbedding, get_timestep_embedding
 from fatezero_tpu_torch.models.resnet import (
@@ -189,6 +190,7 @@ class UNetPseudo3DConditionModel(nn.Module):
         self.conv_norm_out = FusedGroupNorm(cfg.norm_num_groups, ch0, cfg.norm_eps, **kw)
         self.conv_out = PseudoConv3d(ch0, cfg.out_channels, 3, lora_rank=cfg.lora, **kw)
 
+    @spanned("fz.unet.forward")
     def forward(
         self,
         sample: torch.Tensor,

@@ -45,6 +45,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from fatezero_tpu_torch.common.profiling import span, spanned
 from fatezero_tpu_torch.models.vae import VAE_SCALE
 from fatezero_tpu_torch.ops import schedule as S
 from fatezero_tpu_torch.parallel.sharding import seq_mesh_scope, shard_unet_, tensor_size, tensor_sum
@@ -173,6 +174,7 @@ class FateZeroPipeline:
         return self.mesh.all_frames(x.to(self.device), axis)
 
     # ------------------------------------------------------------------ text
+    @spanned("fz.pipeline.encode_prompt")
     @torch.inference_mode()
     def encode_prompt(self, prompt: str, negative_prompt: str = "") -> torch.Tensor:
         """[2, 77, C] (uncond, cond) text embeddings."""
@@ -181,6 +183,7 @@ class FateZeroPipeline:
         return self.text_encoder(ids)
 
     # ------------------------------------------------------------------- vae
+    @spanned("fz.pipeline.encode_video")
     @torch.inference_mode()
     def encode_video(self, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """images [f, h, w, 3] in [-1, 1] -> fp32 latents [1, f, h/8, w/8, 4] (scaled);
@@ -200,6 +203,7 @@ class FateZeroPipeline:
             z = z + torch.exp(0.5 * logvar.float()) * noise.to(z.device)
         return (z * VAE_SCALE)[None]
 
+    @spanned("fz.pipeline.decode_latents")
     @torch.inference_mode()
     def decode_latents(self, latents: torch.Tensor, chunk: int = 16) -> np.ndarray:
         """latents [1, f, h, w, 4] -> video [f, 8h, 8w, 3] in [0, 1] (numpy fp32),
@@ -399,6 +403,7 @@ class FateZeroPipeline:
                 new_latent = apply_latent_blend(new_latent, inv_latent, lmask)
         return new_latent, ctx.captured, blend_sums, masks
 
+    @spanned("fz.pipeline.invert_fast")
     @_on_mesh
     @torch.inference_mode()
     def invert_fast(
@@ -429,7 +434,8 @@ class FateZeroPipeline:
         for i, t in enumerate(ts_up):
             t = int(t)
             if capture and row0 <= i < row0 + count:
-                sctx = StoreContext(save_self_attention=False, store_dtype=self.store_dtype, self_qk=True)
+                with span("fz.ptp.step"):
+                    sctx = StoreContext(save_self_attention=False, store_dtype=self.store_dtype, self_qk=True)
                 eps = self.unet(lat, t, cond, attn_ctx=sctx)
                 per_step.append({"probs": sctx.captured, "qk": sctx.captured_qk})
             else:
@@ -488,6 +494,7 @@ class FateZeroPipeline:
             meta(lat, 0, cond, attn_ctx=ctx)
         return sum(m.numel() * m.element_size() for v in ctx.captured.values() for m in v)
 
+    @spanned("fz.pipeline.plan_capture")
     def plan_capture(
         self,
         latents: torch.Tensor,
@@ -523,6 +530,7 @@ class FateZeroPipeline:
         return (row0, k)
 
     # ------------------------------------------------------------------ edit
+    @spanned("fz.pipeline.edit_fast")
     @_on_mesh
     @torch.inference_mode()
     def edit_fast(
@@ -662,36 +670,39 @@ class FateZeroPipeline:
             t = int(timesteps[grid[i]])
             rep_lat = traj[int(replay_idx[i])]
             if inline:
-                ctx = InlineEditContext(
-                    params_at(i), alpha_words[i], store_dtype=self.store_dtype,
-                    capture_for_blend=use_latent_blend, viz_size=s16 if viz else None,
-                )
+                with span("fz.ptp.step"):
+                    ctx = InlineEditContext(
+                        params_at(i), alpha_words[i], store_dtype=self.store_dtype,
+                        capture_for_blend=use_latent_blend, viz_size=s16 if viz else None,
+                    )
                 eps = self.unet(torch.cat([rep_lat, latent, latent]), t, text3, attn_ctx=ctx, drop_replay_rows=1)
                 if eps.shape[0] == 3:  # low resolution: nothing was dropped
                     eps = eps[1:]
                 live_maps, inv_maps = ctx.captured, ctx.captured_inv
             else:
-                if seg_stored[i]:
-                    pos = int(replay_pos[i])
-                    injected = {k: [a[pos] for a in lst] for k, lst in stored["probs"].items()}
-                    injected_qk = {k: [(q[pos], kk[pos]) for q, kk in lst] for k, lst in stored["qk"].items()}
-                else:
-                    injected, injected_qk = capture(rep_lat, int(replay_ts[i]))
-                self_masks = None
-                if use_attn_blend:
-                    sizes = {int(q.shape[-2]) for lst in injected_qk.values() for q, _ in lst}
-                    self_masks, mask_viz = _build_self_masks(
-                        injected, attn_alpha, controller.attention_blend.th[0], latent_hw, sizes
+                # a replay's capture forward runs inside: its UNet spans are this one's children
+                with span("fz.ptp.step"):
+                    if seg_stored[i]:
+                        pos = int(replay_pos[i])
+                        injected = {k: [a[pos] for a in lst] for k, lst in stored["probs"].items()}
+                        injected_qk = {k: [(q[pos], kk[pos]) for q, kk in lst] for k, lst in stored["qk"].items()}
+                    else:
+                        injected, injected_qk = capture(rep_lat, int(replay_ts[i]))
+                    self_masks = None
+                    if use_attn_blend:
+                        sizes = {int(q.shape[-2]) for lst in injected_qk.values() for q, _ in lst}
+                        self_masks, mask_viz = _build_self_masks(
+                            injected, attn_alpha, controller.attention_blend.th[0], latent_hw, sizes
+                        )
+                        outs["attn_mask"].append(mask_viz)
+                    ctx = EditContext(
+                        injected=injected,
+                        params=params_at(i, self_masks),
+                        alpha_words=alpha_words[i],
+                        store_dtype=self.store_dtype,
+                        injected_qk=injected_qk,
+                        materialize_cross_size=s16 if (use_latent_blend or viz) else None,
                     )
-                    outs["attn_mask"].append(mask_viz)
-                ctx = EditContext(
-                    injected=injected,
-                    params=params_at(i, self_masks),
-                    alpha_words=alpha_words[i],
-                    store_dtype=self.store_dtype,
-                    injected_qk=injected_qk,
-                    materialize_cross_size=s16 if (use_latent_blend or viz) else None,
-                )
                 eps = self.unet(torch.cat([latent, latent]), t, text_embeddings, attn_ctx=ctx)
                 live_maps, inv_maps = ctx.captured, injected
             eps = S.classifier_free_guidance(eps[:1], eps[1:], guidance_scale)

@@ -55,6 +55,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from fatezero_tpu_torch.common.profiling import span, spanned
 from fatezero_tpu_torch.models.vae import VAE_SCALE
 from fatezero_tpu_torch.ops import schedule as S
 from fatezero_tpu_torch.parallel.sharding import seq_mesh_scope, tensor_block, tensor_gather, tensor_layout
@@ -312,20 +313,29 @@ class DDPMTrainer:
         vae_noise, noise = draws.vae_noise, draws.noise
         if mesh is not None:  # this rank's frames of the whole clip and its draws
             images, vae_noise, noise = (mesh.local_frames(x, a) for x, a in ((images, 0), (vae_noise, 0), (noise, 1)))
-        latents = self._encode(images, vae_noise)[None]  # [1, f, h, w, 4]
-        with seq_mesh_scope(mesh):
-            # the local mean times the local share of the frames: the seq ranks' sum is the clip's mean
-            clip = self._loss(latents, text_emb, noise, draws.t) / seq
-            total = clip / data
-            prior = None
-            if self.prior_preservation is not None and class_images is not None:
-                lat2 = self._encode(class_images, draws.class_vae_noise)[:, None]  # [b, 1, h, w, 4]
-                with seq_mesh_scope(None if mesh is None else mesh.without_seq()):
-                    prior = self.prior_preservation * self._loss(lat2, class_text_emb, draws.class_noise,
-                                                                 draws.class_t)
-                total = total + prior / (data * seq)
+        with span("fz.trainer.forward"):
+            latents = self._encode(images, vae_noise)[None]  # [1, f, h, w, 4]
+            with seq_mesh_scope(mesh):
+                # the local mean times the local share of the frames: the seq ranks' sum is the clip's mean
+                clip = self._loss(latents, text_emb, noise, draws.t) / seq
+                total = clip / data
+                prior = None
+                if self.prior_preservation is not None and class_images is not None:
+                    lat2 = self._encode(class_images, draws.class_vae_noise)[:, None]  # [b, 1, h, w, 4]
+                    with seq_mesh_scope(None if mesh is None else mesh.without_seq()):
+                        prior = self.prior_preservation * self._loss(lat2, class_text_emb, draws.class_noise,
+                                                                     draws.class_t)
+                    total = total + prior / (data * seq)
+        with seq_mesh_scope(mesh), span("fz.trainer.backward"):
             total.backward()
 
+        return self._step_optimizer(state, clip, prior)
+
+    @spanned("fz.trainer.optimizer")
+    def _step_optimizer(self, state, clip, prior):
+        """The gradients gathered (on a mesh) and clipped, the optimizer's step
+        on the fp32 masters and their write-back; returns the update's loss."""
+        mesh = self.mesh
         grads = {
             n: p.grad.float() if p.grad is not None else torch.zeros_like(p, dtype=torch.float32)
             for n, p in self.trainable.items()
@@ -378,6 +388,7 @@ class DDPMTrainer:
             elif param is not master:
                 param.copy_(master)
 
+    @spanned("fz.trainer.step")
     def step(self, state, images, text_emb, generator: torch.Generator, class_images=None, class_text_emb=None):
         """One update on images [f, h, w, 3] in [-1, 1] with text_emb [1, 77, C] (cond);
         the randoms come from `generator` (a host generator). Returns (state, loss)."""
