@@ -86,6 +86,17 @@ class _Recorder:
             self.spans.clear()
             self.counters.clear()
 
+    @contextlib.contextmanager
+    def discarded(self):
+        """Whatever closes inside the block is dropped: the recorder is left as it was."""
+        with self._lock:
+            spans, counters = {n: list(r) for n, r in self.spans.items()}, dict(self.counters)
+        try:
+            yield
+        finally:
+            with self._lock:
+                self.spans, self.counters = spans, counters
+
 
 _RECORDER = _Recorder()
 
@@ -154,6 +165,12 @@ def recorded() -> Dict[str, Dict]:
 def reset() -> None:
     """Clear the recorded spans and counters."""
     _RECORDER.reset()
+
+
+def discarded():
+    """A context manager whose spans and counts are not recorded: host code
+    whose work runs later, as a CUDA graph's capture (its replays do the work)."""
+    return _RECORDER.discarded()
 
 
 class PhaseTimer:

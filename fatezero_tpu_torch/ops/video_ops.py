@@ -154,6 +154,25 @@ def gather_sparse_kv(kv: torch.Tensor, index_spec, num_frames: int) -> torch.Ten
     return torch.cat(_sparse_sources(kv, index_spec, num_frames), dim=2)
 
 
+def _frames_at(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """x[:, idx] for a static index array, made of views of x: each run of one
+    frame repeated an expanded slice, each run of consecutive frames a slice.
+    No index reaches the device, so a CUDA graph can capture it."""
+    parts, i, n = [], 0, len(idx)
+    while i < n:
+        j = i + 1
+        if j < n and idx[j] == idx[i]:
+            while j < n and idx[j] == idx[i]:
+                j += 1
+            parts.append(x[:, idx[i] : idx[i] + 1].expand(x.shape[0], j - i, *x.shape[2:]))
+        else:
+            while j < n and idx[j] == idx[j - 1] + 1:
+                j += 1
+            parts.append(x[:, idx[i] : idx[i] + j - i])
+        i = j
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
 def _sparse_sources(x: torch.Tensor, index_spec, num_frames: int) -> List[torch.Tensor]:
     """Per index-spec entry, the source frame of each of this rank's query
     frames: [B, f, ...] each, for x [B, f, ...] (f = num_frames without a seq
@@ -162,7 +181,7 @@ def _sparse_sources(x: torch.Tensor, index_spec, num_frames: int) -> List[torch.
     offset past the neighbour gathers every frame."""
     mesh = _seq_mesh()
     if mesh is None:
-        return [x[:, torch.as_tensor(idx, device=x.device)] for idx in sparse_frame_indices(num_frames, index_spec)]
+        return [_frames_at(x, idx) for idx in sparse_frame_indices(num_frames, index_spec)]
     fl = x.shape[1]
     if fl * mesh.seq != num_frames:
         raise ValueError(f"{fl} frames a rank on a seq = {mesh.seq} mesh do not make a clip of {num_frames}")

@@ -45,6 +45,18 @@ optimizer of the world of one's size steps whole fp32 masters on every rank:
 AdamW, AdamW8bit's 256-value blocks and Adafactor's factored statistics see
 the whole tensors, and `training_state.pt` has the world of one's layout.
 Each rank then writes its block of the masters into its parameters.
+
+CUDA graphs (the JAX package has none; its update is one jitted function, and
+the semantics here are the eager update's): where `graph_engages` holds,
+`step` runs the first update of a static key eagerly on a side stream, then
+captures everything of an update after the VAE encodes (noising, the UNet
+forward under checkpointing, the losses, the backward with its recomputation
+and the flash kernels, the clip, AdamW's step and the write-back) into one
+`torch.cuda.CUDAGraph`, and replays it for every later update of that key:
+each update's latents, draws and embeddings are copied into the graph's
+static inputs and its learning rate into a device scalar. The encodes stay
+eager (a caller may hook the VAE). AdamW is built `capturable` on the card
+(device-side step counts), so one optimizer serves both paths.
 """
 from __future__ import annotations
 
@@ -55,14 +67,19 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from fatezero_tpu_torch.common import profiling
 from fatezero_tpu_torch.common.profiling import span, spanned
 from fatezero_tpu_torch.models.vae import VAE_SCALE
+from fatezero_tpu_torch.ops import flash_attention as FA
 from fatezero_tpu_torch.ops import schedule as S
+from fatezero_tpu_torch.ops.fused_norm import layer_norm_kernel
 from fatezero_tpu_torch.parallel.sharding import seq_mesh_scope, tensor_block, tensor_gather, tensor_layout
 
 TRAINABLE = ("attn_temporal", "to_q")
 TEMPORAL_CONV = ("conv_temporal",)  # holds the flax conv_temporal_* and lora_temporal_* leaves
 STATE_FILE = "training_state.pt"
+# the hand-written kernels' launch counters: a capture launches nothing, each replay what the capture counted
+LAUNCH_COUNTED = (FA.flash_forward, FA.flash_dq, FA.flash_dkv, layer_norm_kernel)
 
 
 def trainable_mask(module: torch.nn.Module, patterns=TRAINABLE, train_temporal_conv: bool = False) -> Dict[str, bool]:
@@ -179,9 +196,91 @@ def load_training_state(path: str, trainer: "DDPMTrainer", state: Dict) -> Dict:
         for name, master in state["master"].items():
             master.copy_(saved["master"][name])
         trainer._write_back(state)
-    state["optimizer"].load_state_dict(saved["optimizer"])
+    opt = state["optimizer"]
+    # step counts where this optimizer keeps them (on the device when capturable),
+    # whichever device the saving optimizer kept them on
+    for group, now in zip(saved["optimizer"]["param_groups"], opt.param_groups):
+        if "capturable" in now:
+            group["capturable"] = now["capturable"]
+    opt.load_state_dict(saved["optimizer"])
+    trainer._graph = None  # the loaded state tensors are not those a graph captured
     state["step"] = int(saved["step"])
     return state
+
+
+# ---------------------------------------------------------------- CUDA graphs
+
+WARMUP_UPDATES = 1  # eager updates of a new static key before its capture
+
+
+def hooked(module: torch.nn.Module) -> bool:
+    """Whether any submodule has a forward, pre-forward or backward hook."""
+    return any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks or m._backward_pre_hooks
+               for m in module.modules())
+
+
+def graph_engages(device: torch.device, unet: torch.nn.Module, mesh, optimizer: str) -> bool:
+    """Whether `DDPMTrainer.step` runs an update on `device` (the UNet's) as a
+    CUDA graph: on a CUDA device, with no mesh (its collectives stay eager),
+    with torch's AdamW (AdamW8bit and Adafactor stay eager), no hook on a
+    UNet module (a replay would skip it) and grad mode on."""
+    return (device.type == "cuda" and mesh is None and optimizer == "adamw" and torch.is_grad_enabled()
+            and not hooked(unet))
+
+
+def graph_key(tensors, prediction_type: str) -> tuple:
+    """The static key of a captured update: the shape and dtype of each of its
+    inputs (None for an absent class term) and the prediction type."""
+    return tuple(None if x is None else (tuple(x.shape), x.dtype) for x in tensors) + (prediction_type,)
+
+
+class _UpdateGraph:
+    """One update captured as a CUDA graph for one static key and one
+    optimizer (its masters and state). `warm` counts the eager updates run for
+    the key; after the capture `inputs` holds the static tensors the graph
+    reads, `lr` the learning rate it reads, `loss` and `grad_norm` the static
+    tensors it writes, and `launched` each counted kernel's launches in it."""
+
+    def __init__(self, key: tuple, optimizer):
+        self.key, self.optimizer = key, optimizer
+        self.warm = 0
+        self.graph = None
+
+    def capture(self, trainer: "DDPMTrainer", state: Dict, inputs: Dict[str, Optional[torch.Tensor]]) -> None:
+        """Capture the update on static copies of `inputs`. The host advances
+        nothing: not the step, the launch counters or the recorded spans."""
+        device = inputs["latents"].device
+        self.inputs = {n: None if x is None else x.to(device, copy=True) for n, x in inputs.items()}
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+        for group in state["optimizer"].param_groups:
+            group["lr"] = self.lr
+        for p in trainer.trainable.values():
+            p.grad = None  # the backward then writes the gradients into the graph's pool
+        before = [fn.launches for fn in LAUNCH_COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        with profiling.discarded(), torch.cuda.graph(graph):
+            clip, prior, total = trainer._objective(**self.inputs)
+            total.backward()
+            self.loss = trainer._clip_and_step(state, clip, prior)
+            self.grad_norm = state["grad_norm"]
+        self.launched = [fn.launches - n for fn, n in zip(LAUNCH_COUNTED, before)]
+        for fn, n in zip(LAUNCH_COUNTED, before):
+            fn.launches = n
+        for p in trainer.trainable.values():
+            p.grad = None  # held by no one between updates, as in the eager path; the replays write them in the pool
+        # cuBLAS keeps a workspace per stream: the warm-up's side stream and the capture's got their own, which
+        # no eager work uses again (the capture's stays in the graph's pool, as torch's own graph trees leave it)
+        torch._C._cuda_clearCublasWorkspaces()
+        self.graph = graph
+
+    def replay(self, inputs: Dict[str, Optional[torch.Tensor]], lr: float) -> None:
+        for n, x in inputs.items():
+            if x is not None:
+                self.inputs[n].copy_(x)
+        self.lr.fill_(lr)
+        self.graph.replay()
+        for fn, n in zip(LAUNCH_COUNTED, self.launched):
+            fn.launches += n
 
 
 # --------------------------------------------------------------------- trainer
@@ -235,6 +334,7 @@ class DDPMTrainer:
         cfg = vae.cfg
         self._vae_factor = 2 ** (len(cfg.block_out_channels) - 1)
         self._latent_channels = cfg.latent_channels
+        self._graph: Optional[_UpdateGraph] = None
 
     def init_state(self) -> Dict:
         """{"step", "optimizer", "master"}: master holds an fp32 copy of each
@@ -257,7 +357,8 @@ class DDPMTrainer:
             opt = Adafactor(params, lr=self.lr(0))
         else:
             opt = torch.optim.AdamW(params, lr=self.lr(0), betas=(0.9, 0.999), eps=1e-8,
-                                    weight_decay=self.weight_decay)
+                                    weight_decay=self.weight_decay, capturable=params[0].is_cuda)
+        self._graph = None
         return {"step": 0, "optimizer": opt, "master": master}
 
     # ------------------------------------------------------------------ draws
@@ -302,30 +403,44 @@ class DDPMTrainer:
             raise ValueError(self.schedule.prediction_type)
         return torch.mean((pred.float() - target.float()) ** 2)
 
+    def _latents(self, images, vae_noise, class_images=None, class_vae_noise=None):
+        """The clip's scaled posterior sample [1, f, h, w, 4] and, with prior
+        preservation, the class images' [b, 1, h, w, 4] (else None)."""
+        latents = self._encode(images, vae_noise)[None]
+        if self.prior_preservation is None or class_images is None:
+            return latents, None
+        return latents, self._encode(class_images, class_vae_noise)[:, None]
+
+    def _objective(self, latents, text_emb, noise, t, class_latents=None, class_text_emb=None, class_noise=None,
+                   class_t=None):
+        """(the clip's term, the prior term or None, the total to differentiate)."""
+        mesh = self.mesh
+        data, seq = (1, 1) if mesh is None else (mesh.size("data"), mesh.seq)
+        with seq_mesh_scope(mesh):
+            # the local mean times the local share of the frames: the seq ranks' sum is the clip's mean
+            clip = self._loss(latents, text_emb, noise, t) / seq
+            total = clip / data
+            prior = None
+            if class_latents is not None:
+                with seq_mesh_scope(None if mesh is None else mesh.without_seq()):
+                    prior = self.prior_preservation * self._loss(class_latents, class_text_emb, class_noise, class_t)
+                total = total + prior / (data * seq)
+        return clip, prior, total
+
     def _update(self, state, images, text_emb, draws: Draws, class_images=None, class_text_emb=None):
-        """One parameter update with explicit draws; returns the loss (on the device).
+        """One eager parameter update with explicit draws; returns the loss (on the device).
         The clipped fp32 gradients stay in each master's `.grad` until the next update.
         images and draws are the whole clip's, on a mesh too."""
         mesh = self.mesh
         for p in self.trainable.values():
             p.grad = None
-        data, seq = (1, 1) if mesh is None else (mesh.size("data"), mesh.seq)
         vae_noise, noise = draws.vae_noise, draws.noise
         if mesh is not None:  # this rank's frames of the whole clip and its draws
             images, vae_noise, noise = (mesh.local_frames(x, a) for x, a in ((images, 0), (vae_noise, 0), (noise, 1)))
         with span("fz.trainer.forward"):
-            latents = self._encode(images, vae_noise)[None]  # [1, f, h, w, 4]
-            with seq_mesh_scope(mesh):
-                # the local mean times the local share of the frames: the seq ranks' sum is the clip's mean
-                clip = self._loss(latents, text_emb, noise, draws.t) / seq
-                total = clip / data
-                prior = None
-                if self.prior_preservation is not None and class_images is not None:
-                    lat2 = self._encode(class_images, draws.class_vae_noise)[:, None]  # [b, 1, h, w, 4]
-                    with seq_mesh_scope(None if mesh is None else mesh.without_seq()):
-                        prior = self.prior_preservation * self._loss(lat2, class_text_emb, draws.class_noise,
-                                                                     draws.class_t)
-                    total = total + prior / (data * seq)
+            latents, class_latents = self._latents(images, vae_noise, class_images, draws.class_vae_noise)
+            clip, prior, total = self._objective(latents, text_emb, noise, draws.t, class_latents, class_text_emb,
+                                                 draws.class_noise, draws.class_t)
         with seq_mesh_scope(mesh), span("fz.trainer.backward"):
             total.backward()
 
@@ -333,8 +448,17 @@ class DDPMTrainer:
 
     @spanned("fz.trainer.optimizer")
     def _step_optimizer(self, state, clip, prior):
+        """The optimizer's phase at this step's learning rate; returns the update's loss."""
+        for group in state["optimizer"].param_groups:
+            group["lr"] = self.lr(state["step"])
+        loss = self._clip_and_step(state, clip, prior)
+        state["step"] += 1
+        return loss
+
+    def _clip_and_step(self, state, clip, prior):
         """The gradients gathered (on a mesh) and clipped, the optimizer's step
-        on the fp32 masters and their write-back; returns the update's loss."""
+        on the fp32 masters and their write-back; returns the update's loss.
+        Device work alone: a CUDA graph captures it."""
         mesh = self.mesh
         grads = {
             n: p.grad.float() if p.grad is not None else torch.zeros_like(p, dtype=torch.float32)
@@ -355,13 +479,9 @@ class DDPMTrainer:
         for n, g in grads.items():
             state["master"][n].grad = torch.where(keep, g, g / g_norm * self.max_grad_norm)
 
-        opt = state["optimizer"]
-        for group in opt.param_groups:
-            group["lr"] = self.lr(state["step"])
-        opt.step()
+        state["optimizer"].step()
         with torch.no_grad():
             self._write_back(state)
-        state["step"] += 1
         return loss
 
     def _reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -391,11 +511,51 @@ class DDPMTrainer:
     @spanned("fz.trainer.step")
     def step(self, state, images, text_emb, generator: torch.Generator, class_images=None, class_text_emb=None):
         """One update on images [f, h, w, 3] in [-1, 1] with text_emb [1, 77, C] (cond);
-        the randoms come from `generator` (a host generator). Returns (state, loss)."""
+        the randoms come from `generator` (a host generator). Returns (state, loss).
+        Where `graph_engages`, a replay of the key's CUDA graph after one eager update."""
         device = images.device
         draws = self.draw(generator, images.shape, None if class_images is None else class_images.shape)
-        loss = self._update(state, images, text_emb, draws.to(device), class_images, class_text_emb)
-        return state, loss
+        draws = draws.to(device)
+        if not graph_engages(next(self.unet.parameters()).device, self.unet, self.mesh, self.optimizer):
+            return state, self._update(state, images, text_emb, draws, class_images, class_text_emb)
+        prior = self.prior_preservation is not None and class_images is not None
+        key = graph_key((images, text_emb) + ((class_images, class_text_emb) if prior else (None, None)),
+                        self.schedule.prediction_type)
+        graph = self._graph_for(state, key)
+        if graph.warm < WARMUP_UPDATES:
+            graph.warm += 1
+            return state, self._side_stream_update(state, images, text_emb, draws, class_images, class_text_emb)
+        with span("fz.trainer.forward"):
+            latents, class_latents = self._latents(images, draws.vae_noise, class_images, draws.class_vae_noise)
+        inputs = dict(latents=latents, text_emb=text_emb, noise=draws.noise, t=draws.t, class_latents=class_latents,
+                      class_text_emb=None, class_noise=None, class_t=None)
+        if prior:
+            inputs.update(class_text_emb=class_text_emb, class_noise=draws.class_noise, class_t=draws.class_t)
+        with span("fz.trainer.graph"):
+            if graph.graph is None:
+                graph.capture(self, state, inputs)
+            graph.replay(inputs, self.lr(state["step"]))
+        profiling.count("trainer.graphed")
+        state["step"] += 1
+        state["grad_norm"] = graph.grad_norm.clone()
+        return state, graph.loss.clone()
+
+    def _graph_for(self, state, key: tuple) -> _UpdateGraph:
+        """The graph of this key and state; another key or state drops the
+        previous graph (and with it its memory pool) and starts anew."""
+        if self._graph is None or self._graph.key != key or self._graph.optimizer is not state["optimizer"]:
+            self._graph = _UpdateGraph(key, state["optimizer"])
+        return self._graph
+
+    def _side_stream_update(self, *args):
+        """An eager update on a side stream, as a whole-network capture's warm-up runs."""
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            loss = self._update(*args)
+        main.wait_stream(side)
+        return loss
 
     def run_steps(
         self,
