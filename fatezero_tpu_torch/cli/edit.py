@@ -126,6 +126,8 @@ def test(
         schedule=bundle.schedule,
         device=device,
     )
+    # a second text tower (SDXL) and its tokenizer, where the bundle has them
+    pipeline_kwargs.update({k: getattr(bundle, k) for k in ("text_encoder_2", "tokenizer_2") if hasattr(bundle, k)})
     if test_pipeline_config and test_pipeline_config.get("target"):
         pipe = instantiate_from_config(test_pipeline_config, **pipeline_kwargs)
     else:

@@ -226,8 +226,10 @@ class SpatioTemporalTransformerBlock(nn.Module):
 
 
 class SpatioTemporalTransformerModel(nn.Module):
-    """GN (per batch row and frame) -> proj_in -> blocks -> proj_out + residual,
-    on [B, F, H, W, C] video."""
+    """GN (per batch row and frame) -> proj_in -> `num_layers` blocks ->
+    proj_out + residual, on [B, F, H, W, C] video. Each block's controlled
+    sites call the controller in turn, so a deeper stack appends its sites
+    to the same place's list in visit order."""
 
     def __init__(
         self,
@@ -259,6 +261,7 @@ class SpatioTemporalTransformerModel(nn.Module):
         )
         self.proj_out = nn.Linear(inner, in_channels, **kw)
 
+    @spanned("fz.unet.transformer")
     def forward(self, x, context, attn_ctx=None, place=None):
         b, f, hh, ww, c = x.shape
         h = self.proj_in(self.norm(x))

@@ -5,8 +5,14 @@ Counterpart of fatezero_tpu/models/clip.py, with Hugging Face parameter names
 (text_model.embeddings.token_embedding.weight, vision_model.pre_layrnorm.*
 [sic], visual_projection.weight, ...), so an HF `CLIPModel` state_dict loads
 as it is. One transformer serves both towers: self-attention materialised in
-fp32 (causal for text), LayerNorms with fp32 statistics, quick_gelu MLP.
-Images enter channels-last, [B, S, S, 3], as in the JAX package.
+fp32 (causal for text), LayerNorms with fp32 statistics, a quick_gelu MLP
+(or exact-erf gelu: `hidden_act`, as OpenCLIP ViT-bigG, SDXL's second
+tower). A text tower returns its last hidden state after the final LayerNorm
+or, with `output_layer="penultimate"` (SDXL's two towers), the input of its
+last layer without it; the pooled EOS state is always the final LayerNorm's,
+through `text_projection` (HF `CLIPTextModelWithProjection`'s name) where the
+config has a `projection_dim`. Images enter channels-last, [B, S, S, 3], as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from fatezero_tpu_torch.common.profiling import spanned
 from fatezero_tpu_torch.models.layers import FusedLayerNorm
 
 
@@ -30,6 +37,8 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
     projection_dim: Optional[int] = None
+    hidden_act: str = "quick_gelu"  # or "gelu" (exact erf)
+    output_layer: str = "last"  # or "penultimate": the last layer's input, no final LayerNorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +61,9 @@ VIT_B32_VISION_CONFIG = CLIPVisionConfig()
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": torch.nn.functional.gelu}
 
 
 class CLIPAttention(nn.Module):
@@ -83,13 +95,14 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, hidden: int, intermediate: int, dtype=torch.float32, device=None):
+    def __init__(self, hidden: int, intermediate: int, dtype=torch.float32, device=None, act: str = "quick_gelu"):
         super().__init__()
         self.fc1 = nn.Linear(hidden, intermediate, dtype=dtype, device=device)
         self.fc2 = nn.Linear(intermediate, hidden, dtype=dtype, device=device)
+        self.act = ACTIVATIONS[act]
 
     def forward(self, x):
-        return self.fc2(quick_gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class CLIPEncoderLayer(nn.Module):
@@ -98,7 +111,7 @@ class CLIPEncoderLayer(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads, **kw)
         self.layer_norm1 = FusedLayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
-        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, **kw, act=getattr(cfg, "hidden_act", "quick_gelu"))
         self.layer_norm2 = FusedLayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
 
     def forward(self, x, causal: bool):
@@ -142,16 +155,30 @@ class CLIPTextTransformer(nn.Module):
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.final_layer_norm(self.encoder(self.embeddings(input_ids), causal=True))
 
+    def hidden_pair(self, input_ids: torch.Tensor):
+        """(the last layer's input, the final LayerNorm's output)."""
+        x = self.embeddings(input_ids)
+        layers = self.encoder.layers
+        for layer in layers[:-1]:
+            x = layer(x, causal=True)
+        return x, self.final_layer_norm(layers[-1](x, causal=True))
 
-def pool_eot(hidden: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
-    """The hidden state at each sequence's EOT token, the highest id (CLIP's convention)."""
-    return hidden[torch.arange(hidden.shape[0], device=hidden.device), input_ids.argmax(dim=-1)]
+
+def pool_eot(hidden: torch.Tensor, input_ids: torch.Tensor, eos_token_id: Optional[int] = None) -> torch.Tensor:
+    """The hidden state at each sequence's EOT token: the highest id (CLIP's
+    convention), or the first `eos_token_id` when one is given."""
+    if eos_token_id is None:
+        pos = input_ids.argmax(dim=-1)
+    else:
+        pos = (input_ids == eos_token_id).int().argmax(dim=-1)
+    return hidden[torch.arange(hidden.shape[0], device=hidden.device), pos]
 
 
 class CLIPTextModel(nn.Module):
-    """Causal text transformer: input_ids [B, 77] -> last_hidden_state [B, 77, C];
-    with `pool`, also the EOT embedding, through `text_projection` when the
-    config has a `projection_dim`."""
+    """Causal text transformer: input_ids [B, 77] -> its output hidden state
+    [B, 77, C] (`output_layer`); with `pool`, also the EOT embedding of the
+    final LayerNorm's output, through `text_projection` when the config has a
+    `projection_dim`."""
 
     def __init__(self, cfg: CLIPTextConfig = SD_TEXT_CONFIG, dtype=torch.float32, device=None):
         super().__init__()
@@ -160,11 +187,15 @@ class CLIPTextModel(nn.Module):
         if cfg.projection_dim is not None:
             self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False, dtype=dtype, device=device)
 
-    def forward(self, input_ids: torch.Tensor, pool: bool = False):
-        x = self.text_model(input_ids)
+    @spanned("fz.clip.text")
+    def forward(self, input_ids: torch.Tensor, pool: bool = False, eos_token_id: Optional[int] = None):
+        if self.cfg.output_layer == "penultimate":
+            x, last = self.text_model.hidden_pair(input_ids)
+        else:
+            x = last = self.text_model(input_ids)
         if not pool:
             return x
-        pooled = pool_eot(x, input_ids)
+        pooled = pool_eot(last, input_ids, eos_token_id)
         if self.cfg.projection_dim is not None:
             pooled = self.text_projection(pooled)
         return x, pooled

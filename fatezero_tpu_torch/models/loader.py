@@ -6,11 +6,18 @@ Counterpart of fatezero_tpu/models/loader.py. `load_models(path)` builds
 * a diffusers checkpoint folder (tokenizer/, text_encoder/, vae/, unet/,
   scheduler/): the 2-D Stable-Diffusion weights load by name, since the
   port's modules use diffusers/HF parameter names; the inflation-added
-  parameters (`temporal` or `lora` in their name) take the random init;
+  parameters (`temporal` or `lora` in their name) take the random init.
+  An SDXL folder (text_encoder_2/ and tokenizer_2/ besides) adds the second
+  tower and its tokenizer (`text_encoder_2`, `tokenizer_2`), both towers
+  read at their penultimate layer; the VAE's `scaling_factor` comes from its
+  config;
 * a flax-native checkpoint written by the JAX package
   (fatezero_tpu/common/checkpoint.py), converted with convert/from_flax.py;
-* `random:tiny` / `random:sd`, or a path that does not exist (with a
-  warning, as in JAX): deterministic random weights.
+* `random:tiny` / `random:sd` / `random:tiny-xl` / `random:sdxl`, or a path
+  that does not exist (with a warning, as in JAX): deterministic random
+  weights. `random:sdxl` has SDXL-base 1.0's published widths and
+  `random:tiny-xl` its layout at a size the CPU tests hold (3 levels,
+  per-level heads, depths (1, 2, 3), two tiny towers).
 
 Random weights follow the rules of the JAX package's `_fast_init`: temporal
 conv kernels get the dirac (identity) init, `attn_temporal.to_out` and the
@@ -62,6 +69,39 @@ TINY_VAE = VAEConfig(block_out_channels=(16, 32, 32, 32), norm_num_groups=8)
 TINY_TEXT = CLIPTextConfig(
     hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2, vocab_size=1000
 )
+
+# SDXL-base 1.0 (stabilityai/stable-diffusion-xl-base-1.0: unet/, vae/,
+# text_encoder/ and text_encoder_2/ configs)
+SDXL_UNET = dict(
+    sample_size=128,
+    down_block_types=("DownBlockPseudo3D", "CrossAttnDownBlockPseudo3D", "CrossAttnDownBlockPseudo3D"),
+    up_block_types=("CrossAttnUpBlockPseudo3D", "CrossAttnUpBlockPseudo3D", "UpBlockPseudo3D"),
+    block_out_channels=(320, 640, 1280),
+    attention_head_dim=(5, 10, 20),
+    transformer_layers_per_block=(1, 2, 10),
+    cross_attention_dim=2048,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2816,
+)
+SDXL_VAE = VAEConfig(scaling_factor=0.13025)
+SDXL_TEXT = CLIPTextConfig(output_layer="penultimate")
+SDXL_TEXT_2 = CLIPTextConfig(hidden_size=1280, intermediate_size=5120, num_layers=32, num_heads=20,
+                             projection_dim=1280, hidden_act="gelu", output_layer="penultimate")
+TINY_XL_UNET = dict(
+    SDXL_UNET,
+    block_out_channels=(32, 64, 128),
+    attention_head_dim=(2, 4, 8),
+    transformer_layers_per_block=(1, 2, 3),
+    cross_attention_dim=32 + 128,
+    norm_num_groups=8,
+    addition_time_embed_dim=16,
+    projection_class_embeddings_input_dim=40 + 6 * 16,
+)
+TINY_XL_VAE = dataclasses.replace(TINY_VAE, scaling_factor=0.13025)
+TINY_XL_TEXT = dataclasses.replace(TINY_TEXT, output_layer="penultimate")
+TINY_XL_TEXT_2 = CLIPTextConfig(hidden_size=128, intermediate_size=512, num_layers=32, num_heads=4, vocab_size=1000,
+                                projection_dim=40, hidden_act="gelu", output_layer="penultimate")
 
 
 def _unet_cfg_overrides(model_config: dict) -> dict:
@@ -185,19 +225,26 @@ def load_models(
             f"building randomly initialized '{tag}' architecture"
         )
     overrides = _unet_cfg_overrides(model_config)
+    text_cfg_2 = None
     if tag == "tiny":
         unet_cfg = UNet3DConfig(**{**TINY_UNET, **overrides})
         vae_cfg, text_cfg = TINY_VAE, TINY_TEXT
     elif tag == "sd" or not is_random:
         unet_cfg = UNet3DConfig(**overrides)
         vae_cfg, text_cfg = VAEConfig(), CLIPTextConfig()
+    elif tag == "tiny-xl":
+        unet_cfg = UNet3DConfig(**{**TINY_XL_UNET, **overrides})
+        vae_cfg, text_cfg, text_cfg_2 = TINY_XL_VAE, TINY_XL_TEXT, TINY_XL_TEXT_2
+    elif tag == "sdxl":
+        unet_cfg = UNet3DConfig(**{**SDXL_UNET, **overrides})
+        vae_cfg, text_cfg, text_cfg_2 = SDXL_VAE, SDXL_TEXT, SDXL_TEXT_2
     else:
         raise ValueError(f"unknown random checkpoint {pretrained_model_path!r}")
 
     def draw(module):
         return random_state(module, seed)
 
-    return SimpleNamespace(
+    bundle = SimpleNamespace(
         unet=_build(UNetPseudo3DConditionModel, unet_cfg, dtype, device, draw),
         vae=_build(AutoencoderKL, vae_cfg, dtype, device, draw),
         text_encoder=_build(CLIPTextModel, text_cfg, dtype, device, draw),
@@ -205,6 +252,10 @@ def load_models(
         schedule=S.make_schedule(device=device),
         pretrained=False,
     )
+    if text_cfg_2 is not None:
+        bundle.text_encoder_2 = _build(CLIPTextModel, text_cfg_2, dtype, device, lambda m: random_state(m, seed + 1))
+        bundle.tokenizer_2 = StubTokenizer(vocab_size=text_cfg_2.vocab_size)
+    return bundle
 
 
 # ------------------------------------------------------------- diffusers layout
@@ -234,9 +285,29 @@ def _unet_keys(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _text_keys(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """The text tower's keys of an HF CLIP state_dict (its position_ids buffer dropped)."""
-    return {k: v for k, v in state.items() if k.startswith("text_model.") and "position_ids" not in k}
+def _text_keys(state: Dict[str, np.ndarray], projection: bool = False) -> Dict[str, np.ndarray]:
+    """The text tower's keys of an HF CLIP state_dict (its position_ids buffer
+    dropped), with `projection` also `text_projection.weight`
+    (CLIPTextModelWithProjection)."""
+    return {k: v for k, v in state.items()
+            if (k.startswith("text_model.") or (projection and k == "text_projection.weight"))
+            and "position_ids" not in k}
+
+
+def text_config(text_json: dict, output_layer: str = "last", projection: bool = False) -> CLIPTextConfig:
+    """An HF CLIP text config.json as the port's CLIPTextConfig."""
+    return CLIPTextConfig(
+        vocab_size=text_json.get("vocab_size", 49408),
+        hidden_size=text_json.get("hidden_size", 768),
+        intermediate_size=text_json.get("intermediate_size", 3072),
+        num_layers=text_json.get("num_hidden_layers", 12),
+        num_heads=text_json.get("num_attention_heads", 12),
+        max_position_embeddings=text_json.get("max_position_embeddings", 77),
+        layer_norm_eps=text_json.get("layer_norm_eps", 1e-5),
+        hidden_act=text_json.get("hidden_act", "quick_gelu"),
+        projection_dim=text_json.get("projection_dim", 768) if projection else None,
+        output_layer=output_layer,
+    )
 
 
 def clip_model_state(model_dir: str) -> Dict[str, np.ndarray]:
@@ -291,22 +362,25 @@ def _load_pretrained(path: str, model_config: dict, dtype, seed: int, device="cu
     vae_ckpt = load_torch_state(os.path.join(path, "vae"))
     vae = _build(AutoencoderKL, vae_cfg, dtype, device, lambda m: merge_checkpoint(m, vae_ckpt, seed, "VAE"))
 
+    # two towers (SDXL): both read at their penultimate layer, the second pooled and projected
+    two = os.path.isdir(os.path.join(path, "text_encoder_2"))
+    output_layer = "penultimate" if two else "last"
     text_json = _read_json(os.path.join(path, "text_encoder", "config.json"))
-    text_cfg = CLIPTextConfig(
-        vocab_size=text_json.get("vocab_size", 49408),
-        hidden_size=text_json.get("hidden_size", 768),
-        intermediate_size=text_json.get("intermediate_size", 3072),
-        num_layers=text_json.get("num_hidden_layers", 12),
-        num_heads=text_json.get("num_attention_heads", 12),
-        max_position_embeddings=text_json.get("max_position_embeddings", 77),
-    )
+    text_cfg = text_config(text_json, output_layer)
     text_ckpt = _text_keys(load_torch_state(os.path.join(path, "text_encoder")))
     text_encoder = _build(CLIPTextModel, text_cfg, dtype, device,
                           lambda m: merge_checkpoint(m, text_ckpt, seed, "CLIP text"))
-    return SimpleNamespace(
+    bundle = SimpleNamespace(
         unet=unet, vae=vae, text_encoder=text_encoder, tokenizer=tokenizer,
         schedule=_schedule_at(path, device), pretrained=True,
     )
+    if two:
+        text_cfg_2 = text_config(_read_json(os.path.join(path, "text_encoder_2", "config.json")), output_layer, True)
+        text_ckpt_2 = _text_keys(load_torch_state(os.path.join(path, "text_encoder_2")), projection=True)
+        bundle.text_encoder_2 = _build(CLIPTextModel, text_cfg_2, dtype, device,
+                                       lambda m: merge_checkpoint(m, text_ckpt_2, seed, "CLIP text 2"))
+        bundle.tokenizer_2 = CLIPTokenizer.from_pretrained(path, subfolder="tokenizer_2")
+    return bundle
 
 
 # ----------------------------------------------------------- flax-native layout

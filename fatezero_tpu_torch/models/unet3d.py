@@ -15,6 +15,14 @@ the recomputation runs under the mesh of the forward (the backward may run on
 another thread, which does not see the ambient mesh) and issues the block's
 collectives again, in the forward's order on every rank.
 
+Besides SD-1.x the config takes SDXL's keys: a head count (diffusers'
+legacy `attention_head_dim`) and a transformer depth for each level
+(`transformer_layers_per_block`; the mid block takes the last), the
+text-time added embedding (`use_linear_projection` changes nothing here:
+channels-last `proj_in`/`proj_out` are linears either way, and the loader
+takes SD-1's 1x1 convs and SDXL's linears alike): `forward(added_cond=...)` adds
+`add_embedding(cat(text_embeds, sinusoid(time_ids)))` to the time embedding.
+
 On a device mesh (parallel/sharding.py) the forward runs on this rank's block
 of frames with the weights `shard_unet_` kept; the layers exchange what
 crosses blocks. `tensor_shards` records the 'tensor' size the weights were
@@ -24,14 +32,14 @@ from __future__ import annotations
 
 import dataclasses
 import contextlib
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from fatezero_tpu_torch.common.profiling import spanned
+from fatezero_tpu_torch.common.profiling import span, spanned
 from fatezero_tpu_torch.models.attention import SpatioTemporalTransformerModel
 from fatezero_tpu_torch.models.layers import FusedGroupNorm, TimestepEmbedding, get_timestep_embedding
 from fatezero_tpu_torch.models.resnet import (
@@ -66,8 +74,14 @@ class UNet3DConfig:
     )
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
-    attention_head_dim: int = 8  # diffusers legacy: number of heads
+    # diffusers legacy: the number of heads, one for every level or one per level
+    attention_head_dim: Union[int, Tuple[int, ...]] = 8
+    # transformer blocks in each attention site, one for every level or one per level
+    transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1
     cross_attention_dim: int = 768
+    addition_embed_type: Optional[str] = None  # None or "text_time" (SDXL)
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 0
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     flip_sin_to_cos: bool = True
@@ -85,10 +99,14 @@ class UNet3DConfig:
     def from_reference(cls, config: dict) -> "UNet3DConfig":
         """Build from a diffusers unet config.json dict with the FateZero
         model_config keys laid over it, as the JAX package's from_reference:
-        2D block types become their Pseudo3D counterparts, unknown keys drop."""
+        2D block types become their Pseudo3D counterparts, keys that change
+        nothing the UNet computes drop. A key that changes the computation in
+        a way this UNet does not build (`REFUSED`) raises."""
         known = {f.name for f in dataclasses.fields(cls)}
         mapped = {}
         for key, value in config.items():
+            if key in REFUSED and not REFUSED[key](value):
+                raise ValueError(f"the UNet does not build the diffusers key {key}={value!r}")
             if key == "SparseCausalAttention_index":
                 mapped["sparse_causal_indices"] = tuple(value)
             elif key == "temporal_downsample" and value:
@@ -99,11 +117,54 @@ class UNet3DConfig:
                 mapped[key] = tuple(value) if isinstance(value, list) else value
         return cls(**mapped)
 
+    def level_heads(self, level: int) -> int:
+        h = self.attention_head_dim
+        return h[level] if isinstance(h, tuple) else h
+
+    def level_depth(self, level: int) -> int:
+        d = self.transformer_layers_per_block
+        return d[level] if isinstance(d, tuple) else d
+
     def block_sparse_indices(self, dim: int):
         """Frame-local self-attention (no gather) below least_sc_channel."""
         if self.least_sc_channel and dim < self.least_sc_channel:
             return ()
         return self.sparse_causal_indices
+
+
+def _off(*allowed):
+    return lambda value: value in allowed
+
+
+# diffusers keys that change the computation, and the values this UNet builds
+REFUSED = {
+    "class_embed_type": _off(None),
+    "num_class_embeds": _off(None),
+    "upcast_attention": _off(None, False),
+    "only_cross_attention": lambda v: not (any(v) if isinstance(v, (list, tuple)) else v),
+    "dual_cross_attention": _off(None, False),
+    "resnet_time_scale_shift": _off("default"),
+    "num_attention_heads": _off(None),
+    "addition_embed_type": _off(None, "text_time"),
+    "encoder_hid_dim": _off(None),
+    "time_cond_proj_dim": _off(None),
+    "time_embedding_type": _off("positional"),
+    "mid_block_type": _off("UNetMidBlock2DCrossAttn"),
+    "center_input_sample": _off(False),
+    "conv_in_kernel": _off(3),
+    "conv_out_kernel": _off(3),
+    "reverse_transformer_layers_per_block": _off(None),
+    "encoder_hid_dim_type": _off(None),
+    "cross_attention_norm": _off(None),
+    "time_embedding_act_fn": _off(None),
+    "time_embedding_dim": _off(None),
+    "timestep_post_act": _off(None),
+    "resnet_skip_time_act": _off(False),
+    "resnet_out_scale_factor": _off(1, 1.0),
+    "mid_block_scale_factor": _off(1, 1.0),
+    "act_fn": _off("silu"),
+    "downsample_padding": _off(1),
+}
 
 
 class _Blocks(nn.Module):
@@ -129,21 +190,24 @@ class UNetPseudo3DConditionModel(nn.Module):
         kw = dict(dtype=dtype, device=device)
         ch0 = cfg.block_out_channels[0]
         temb_ch = ch0 * 4
-        heads = cfg.attention_head_dim
 
         def resnet(cin, cout):
             return ResnetBlockPseudo3D(
                 cin, cout, temb_ch, cfg.norm_num_groups, cfg.norm_eps, cfg.lora, **kw
             )
 
-        def transformer(ch):
+        def transformer(ch, level):
+            heads = cfg.level_heads(level)
             return SpatioTemporalTransformerModel(
-                ch, heads, ch // heads, 1, cfg.cross_attention_dim, cfg.norm_num_groups,
+                ch, heads, ch // heads, cfg.level_depth(level), cfg.cross_attention_dim, cfg.norm_num_groups,
                 cfg.block_sparse_indices(ch), True, cfg.temporal_attention, **kw,
             )
 
         self.conv_in = PseudoConv3d(cfg.in_channels, ch0, 3, lora_rank=cfg.lora, **kw)
         self.time_embedding = TimestepEmbedding(ch0, temb_ch, **kw)
+        self.add_embedding = None
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, temb_ch, **kw)
 
         n = len(cfg.down_block_types)
         skips = [ch0]  # channel count of each residual pushed on the skip stack
@@ -158,7 +222,7 @@ class UNetPseudo3DConditionModel(nn.Module):
             for j in range(cfg.layers_per_block):
                 resnets.append(resnet(cin if j == 0 else cout, cout))
                 if cross:
-                    attns.append(transformer(cout))
+                    attns.append(transformer(cout, i))
                 skips.append(cout)
             sampler = None
             if not is_final:
@@ -168,7 +232,7 @@ class UNetPseudo3DConditionModel(nn.Module):
             cin = cout
 
         cmid = cfg.block_out_channels[-1]
-        self.mid_block = _Blocks([resnet(cmid, cmid), resnet(cmid, cmid)], [transformer(cmid)])
+        self.mid_block = _Blocks([resnet(cmid, cmid), resnet(cmid, cmid)], [transformer(cmid, n - 1)])
 
         rev = list(reversed(cfg.block_out_channels))
         self.up_blocks = nn.ModuleList()
@@ -182,7 +246,7 @@ class UNetPseudo3DConditionModel(nn.Module):
             for j in range(cfg.layers_per_block + 1):
                 resnets.append(resnet((cin if j == 0 else cout) + skips.pop(), cout))
                 if cross:
-                    attns.append(transformer(cout))
+                    attns.append(transformer(cout, n - 1 - i))
             sampler = None if is_final else UpsamplePseudo3D(cout, t_up, cfg.lora, **kw)
             self.up_blocks.append(_Blocks(resnets, attns, sampler, "upsamplers"))
             cin = cout
@@ -198,8 +262,13 @@ class UNetPseudo3DConditionModel(nn.Module):
         encoder_hidden_states: torch.Tensor,
         attn_ctx: Optional[AttnContext] = None,
         drop_replay_rows: int = 0,
+        added_cond: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Optional[torch.Tensor]:
-        """drop_replay_rows: the first N batch rows exist only to feed the
+        """added_cond: with the text-time embedding (SDXL), `text_embeds`
+        [B, P] and `time_ids` [B, 6], one row per batch row; a UNet without
+        it takes none.
+
+        drop_replay_rows: the first N batch rows exist only to feed the
         controller's stored or edited maps (the inversion replay of the edit).
         No site above MAX_CONTROLLED_TOKENS queries is stored or edited, and
         the up blocks' resolution only grows, so from the first up block past
@@ -221,6 +290,16 @@ class UNetPseudo3DConditionModel(nn.Module):
             timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift
         ).to(self.dtype)
         temb = self.time_embedding(t_emb)
+        if (added_cond is None) != (self.add_embedding is None):
+            raise ValueError("the text-time UNet needs added_cond (text_embeds, time_ids); another UNet takes none")
+        if added_cond is not None:
+            with span("fz.unet.add_embedding"):
+                time_ids = added_cond["time_ids"]
+                t_ids = get_timestep_embedding(
+                    time_ids.reshape(-1), cfg.addition_time_embed_dim, cfg.flip_sin_to_cos, cfg.freq_shift
+                ).reshape(time_ids.shape[0], -1)
+                add = torch.cat([added_cond["text_embeds"].float(), t_ids], dim=-1).to(self.dtype)
+                temb = temb + self.add_embedding(add)
         context = encoder_hidden_states.to(self.dtype)
 
         x = self.conv_in(sample.to(self.dtype))

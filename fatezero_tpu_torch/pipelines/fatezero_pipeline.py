@@ -3,8 +3,12 @@
 Counterpart of fatezero_tpu/pipelines/fatezero_pipeline.py, the zero-shot
 edit:
 
-1. ``encode_prompt``: CLIP text embeddings of the source and target prompts;
-2. ``encode_video``: VAE encoding of the clip;
+1. ``encode_prompt``: CLIP text embeddings of the source and target prompts
+   (with two towers, SDXL's, a ``PromptEmbeds``: the concatenated context and
+   the second tower's pooled embeds, which every UNet call adds to the time
+   embedding with the clip's text-time ids);
+2. ``encode_video``: VAE encoding of the clip, scaled by the VAE config's
+   ``scaling_factor``;
 3. ``invert_fast``: the clean -> noisy DDIM inversion; with capture=True it
    also stores the controlled sites' payload (cross probabilities and self
    (q, k)) for every step, or for the rows ``capture_rows`` names
@@ -46,13 +50,40 @@ import numpy as np
 import torch
 
 from fatezero_tpu_torch.common.profiling import span, spanned
-from fatezero_tpu_torch.models.vae import VAE_SCALE
 from fatezero_tpu_torch.ops import schedule as S
 from fatezero_tpu_torch.parallel.sharding import seq_mesh_scope, shard_unet_, tensor_size, tensor_sum
 from fatezero_tpu_torch.ptp.context import EditContext, EditParams, InlineEditContext, StoreContext
 from fatezero_tpu_torch.ptp.controller import EditController
 from fatezero_tpu_torch.ptp.spatial_blend import apply_latent_blend, blend_mask
 from fatezero_tpu_torch.ptp.store import AttentionStore
+
+
+class PromptEmbeds:
+    """A two-tower prompt encoding: `context` [B, 77, C1 + C2] (each tower's
+    penultimate hidden states side by side) and `pooled` [B, P] (the second
+    tower's projected EOS state), row for row. Rows slice and concatenate
+    together, so the pipeline's methods take it where they take a context."""
+
+    def __init__(self, context: torch.Tensor, pooled: torch.Tensor):
+        self.context, self.pooled = context, pooled
+
+    def __getitem__(self, rows) -> "PromptEmbeds":
+        return PromptEmbeds(self.context[rows], self.pooled[rows])
+
+    def float(self) -> "PromptEmbeds":
+        return PromptEmbeds(self.context.float(), self.pooled.float())
+
+    def cpu(self) -> "PromptEmbeds":
+        return PromptEmbeds(self.context.cpu(), self.pooled.cpu())
+
+    @staticmethod
+    def cat(parts) -> "PromptEmbeds":
+        return PromptEmbeds(torch.cat([p.context for p in parts]), torch.cat([p.pooled for p in parts]))
+
+
+def _cat_embeds(parts):
+    """Row-concatenate contexts, or PromptEmbeds."""
+    return PromptEmbeds.cat(parts) if isinstance(parts[0], PromptEmbeds) else torch.cat(parts, dim=0)
 
 
 def _stack_steps(per_step):
@@ -143,12 +174,17 @@ class FateZeroPipeline:
         schedule: Optional[S.DiffusionSchedule] = None,
         store_dtype=torch.bfloat16,
         device="cuda",
+        text_encoder_2=None,
+        tokenizer_2=None,
     ):
         self.device = torch.device(device)
         self.unet = unet
         self.vae = vae
         self.text_encoder = text_encoder
         self.tokenizer = tokenizer
+        self.text_encoder_2 = text_encoder_2
+        self.tokenizer_2 = tokenizer_2
+        self._time_ids: Dict = {}
         self.schedule = schedule if schedule is not None else S.make_schedule(device=self.device)
         self.store_dtype = store_dtype
         self.mesh = None
@@ -176,11 +212,50 @@ class FateZeroPipeline:
     # ------------------------------------------------------------------ text
     @spanned("fz.pipeline.encode_prompt")
     @torch.inference_mode()
-    def encode_prompt(self, prompt: str, negative_prompt: str = "") -> torch.Tensor:
-        """[2, 77, C] (uncond, cond) text embeddings."""
-        ids = self.tokenizer([negative_prompt, prompt]).input_ids
-        ids = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=self.device)
-        return self.text_encoder(ids)
+    def encode_prompt(self, prompt: str, negative_prompt: str = ""):
+        """[2, 77, C] (uncond, cond) text embeddings; with a second tower a
+        PromptEmbeds of both towers, whose uncond row is zeros for an empty
+        negative prompt (SDXL's published `force_zeros_for_empty_prompt`)."""
+
+        def ids_of(tokenizer):
+            ids = tokenizer([negative_prompt, prompt]).input_ids
+            return torch.as_tensor(np.asarray(ids), dtype=torch.long, device=self.device)
+
+        if self.text_encoder_2 is None:
+            return self.text_encoder(ids_of(self.tokenizer))
+        ids_2 = ids_of(self.tokenizer_2)
+        ctx_2, pooled = self.text_encoder_2(ids_2, pool=True, eos_token_id=self.tokenizer_2.eos_token_id)
+        context = torch.cat([self.text_encoder(ids_of(self.tokenizer)), ctx_2], dim=-1)
+        if not negative_prompt:
+            context = torch.cat([torch.zeros_like(context[:1]), context[1:]])
+            pooled = torch.cat([torch.zeros_like(pooled[:1]), pooled[1:]])
+        return PromptEmbeds(context, pooled)
+
+    def _unet(self, sample, t, embeds, unet=None, **kwargs):
+        """One UNet call under a context or a PromptEmbeds: the latter's pooled
+        embeds and the clip's text-time ids (original size, crop corner
+        (0, 0), target size: the frames' pixel size, as SDXL's pipeline
+        conditions a full uncropped image) go in as the added conditions."""
+        unet = self.unet if unet is None else unet
+        if not isinstance(embeds, PromptEmbeds):
+            return unet(sample, t, embeds, **kwargs)
+        key = (self._pixel_size(sample), sample.device)
+        time_ids = self._time_ids.get(key)
+        if time_ids is None:  # made once per size: no host-to-device copy per call
+            (h, w), dev = key
+            time_ids = self._time_ids[key] = torch.tensor([[h, w, 0, 0, h, w]], dtype=torch.float32, device=dev)
+        added = {"text_embeds": embeds.pooled, "time_ids": time_ids.expand(embeds.pooled.shape[0], 6)}
+        return unet(sample, t, embeds.context, added_cond=added, **kwargs)
+
+    def _pixel_size(self, latents):
+        """The frames' pixel (height, width) of [.., h, w, 4] latents (the
+        whole frame's on a mesh, which splits frames, not space)."""
+        f = 2 ** (len(self.vae.cfg.block_out_channels) - 1) if self.vae is not None else 8
+        return int(latents.shape[-3]) * f, int(latents.shape[-2]) * f
+
+    @property
+    def latent_scale(self) -> float:
+        return float(self.vae.cfg.scaling_factor)
 
     # ------------------------------------------------------------------- vae
     @spanned("fz.pipeline.encode_video")
@@ -201,14 +276,14 @@ class FateZeroPipeline:
             if self.mesh is not None:
                 noise = self.mesh.local_frames(noise, axis=0)
             z = z + torch.exp(0.5 * logvar.float()) * noise.to(z.device)
-        return (z * VAE_SCALE)[None]
+        return (z * self.latent_scale)[None]
 
     @spanned("fz.pipeline.decode_latents")
     @torch.inference_mode()
     def decode_latents(self, latents: torch.Tensor, chunk: int = 16) -> np.ndarray:
         """latents [1, f, h, w, 4] -> video [f, 8h, 8w, 3] in [0, 1] (numpy fp32),
         decoded in frame chunks."""
-        frames = latents[0] / VAE_SCALE
+        frames = latents[0] / self.latent_scale
         outs = []
         for i in range(0, frames.shape[0], chunk):
             outs.append(self.vae.decode(frames[i : i + chunk]).float().cpu().numpy())
@@ -241,7 +316,7 @@ class FateZeroPipeline:
             ctx = None
             if store is not None:
                 ctx = StoreContext(save_self_attention=save_self_attention, store_dtype=self.store_dtype)
-            eps = self.unet(lat, t, cond, attn_ctx=ctx)
+            eps = self._unet(lat, t, cond, attn_ctx=ctx)
             lat = S.ddim_invert_step(self.schedule, eps, t, lat, steps)
             if store is not None:
                 store.append_step(ctx.captured, lat)
@@ -266,7 +341,7 @@ class FateZeroPipeline:
         lat = latents.float().to(self.device)
         for t in ts[steps - n_used:]:
             t = int(t)
-            eps = self.unet(torch.cat([lat, lat]), t, text_embeddings)
+            eps = self._unet(torch.cat([lat, lat]), t, text_embeddings)
             eps = S.classifier_free_guidance(eps[:1], eps[1:], guidance_scale)
             lat = S.ddim_denoise_step(self.schedule, eps, t, lat, steps)
         return lat
@@ -368,7 +443,7 @@ class FateZeroPipeline:
     def _save_step(self, latent, t, text_embeddings, guidance_scale, steps):
         """One CFG step that captures the cond row's maps ('save')."""
         ctx = StoreContext(store_dtype=self.store_dtype)
-        eps = self.unet(torch.cat([latent, latent]), t, text_embeddings, attn_ctx=ctx)
+        eps = self._unet(torch.cat([latent, latent]), t, text_embeddings, attn_ctx=ctx)
         eps = S.classifier_free_guidance(eps[:1], eps[1:], guidance_scale)
         return S.ddim_denoise_step(self.schedule, eps, t, latent, steps), ctx.captured
 
@@ -387,7 +462,7 @@ class FateZeroPipeline:
             injected=injected, params=params, alpha_words=alpha_words, store_dtype=self.store_dtype,
             value_space_cross=False,
         )
-        eps = self.unet(torch.cat([latent, latent]), t, text_embeddings, attn_ctx=ctx)
+        eps = self._unet(torch.cat([latent, latent]), t, text_embeddings, attn_ctx=ctx)
         eps = S.classifier_free_guidance(eps[:1], eps[1:], guidance_scale)
         new_latent = S.ddim_denoise_step(self.schedule, eps, t, latent, steps)
         masks = {"attention_blend": mask_viz, "latent_blend": None}
@@ -436,10 +511,10 @@ class FateZeroPipeline:
             if capture and row0 <= i < row0 + count:
                 with span("fz.ptp.step"):
                     sctx = StoreContext(save_self_attention=False, store_dtype=self.store_dtype, self_qk=True)
-                eps = self.unet(lat, t, cond, attn_ctx=sctx)
+                eps = self._unet(lat, t, cond, attn_ctx=sctx)
                 per_step.append({"probs": sctx.captured, "qk": sctx.captured_qk})
             else:
-                eps = self.unet(lat, t, cond)
+                eps = self._unet(lat, t, cond)
             lat = S.ddim_invert_step(self.schedule, eps, t, lat, steps)
             traj.append(lat)
         traj = torch.stack(traj)
@@ -469,9 +544,8 @@ class FateZeroPipeline:
             shard_unet_(meta, self.mesh)
         sctx = StoreContext(save_self_attention=False, store_dtype=self.store_dtype, self_qk=True)
         lat = torch.empty(tuple(latents.shape), dtype=torch.float32, device="meta")
-        cond = torch.empty((1, 77, self.unet.cfg.cross_attention_dim), dtype=torch.float32, device="meta")
         with torch.inference_mode():
-            meta(lat, 0, cond, attn_ctx=sctx)
+            self._unet(lat, 0, self._meta_cond(), unet=meta, attn_ctx=sctx)
         leaves = _payload_leaves({"probs": sctx.captured, "qk": sctx.captured_qk})
         per_step = sum(t.numel() * t.element_size() for t in leaves)
         return per_step * num_inference_steps
@@ -489,10 +563,18 @@ class FateZeroPipeline:
             shard_unet_(meta, self.mesh)
         ctx = StoreContext(save_self_attention=save_self_attention, store_dtype=self.store_dtype)
         lat = torch.empty(tuple(latents.shape), dtype=torch.float32, device="meta")
-        cond = torch.empty((1, 77, self.unet.cfg.cross_attention_dim), dtype=torch.float32, device="meta")
         with torch.inference_mode():
-            meta(lat, 0, cond, attn_ctx=ctx)
+            self._unet(lat, 0, self._meta_cond(), unet=meta, attn_ctx=ctx)
         return sum(m.numel() * m.element_size() for v in ctx.captured.values() for m in v)
+
+    def _meta_cond(self):
+        """A storage-free one-row context (and pooled embeds, for a text-time UNet)."""
+        cfg = self.unet.cfg
+        cond = torch.empty((1, 77, cfg.cross_attention_dim), dtype=torch.float32, device="meta")
+        if self.unet.add_embedding is None:
+            return cond
+        pooled_dim = cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim
+        return PromptEmbeds(cond, torch.empty((1, pooled_dim), dtype=torch.float32, device="meta"))
 
     @spanned("fz.pipeline.plan_capture")
     def plan_capture(
@@ -634,7 +716,7 @@ class FateZeroPipeline:
         latent_hw = int(traj.shape[-3])
         s16 = (latent_hw // 4) ** 2
         cond_src = cond_embeddings[-1:]
-        text3 = torch.cat([cond_src, text_embeddings], dim=0)
+        text3 = _cat_embeds([cond_src, text_embeddings])
 
         def params_at(i, self_masks=None):
             return EditParams(
@@ -652,7 +734,7 @@ class FateZeroPipeline:
         def capture(lat, t):
             """A capture-only forward of the inversion step: (cross maps, self (q, k))."""
             sctx = StoreContext(save_self_attention=False, store_dtype=self.store_dtype, self_qk=save_self)
-            self.unet(lat, t, cond_src, attn_ctx=sctx, drop_replay_rows=lat.shape[0])
+            self._unet(lat, t, cond_src, attn_ctx=sctx, drop_replay_rows=lat.shape[0])
             return sctx.captured, sctx.captured_qk
 
         def viz16(ctx_maps):
@@ -675,7 +757,7 @@ class FateZeroPipeline:
                         params_at(i), alpha_words[i], store_dtype=self.store_dtype,
                         capture_for_blend=use_latent_blend, viz_size=s16 if viz else None,
                     )
-                eps = self.unet(torch.cat([rep_lat, latent, latent]), t, text3, attn_ctx=ctx, drop_replay_rows=1)
+                eps = self._unet(torch.cat([rep_lat, latent, latent]), t, text3, attn_ctx=ctx, drop_replay_rows=1)
                 if eps.shape[0] == 3:  # low resolution: nothing was dropped
                     eps = eps[1:]
                 live_maps, inv_maps = ctx.captured, ctx.captured_inv
@@ -703,7 +785,7 @@ class FateZeroPipeline:
                         injected_qk=injected_qk,
                         materialize_cross_size=s16 if (use_latent_blend or viz) else None,
                     )
-                eps = self.unet(torch.cat([latent, latent]), t, text_embeddings, attn_ctx=ctx)
+                eps = self._unet(torch.cat([latent, latent]), t, text_embeddings, attn_ctx=ctx)
                 live_maps, inv_maps = ctx.captured, injected
             eps = S.classifier_free_guidance(eps[:1], eps[1:], guidance_scale)
             new_latent = S.ddim_denoise_step(self.schedule, eps, t, latent, steps)

@@ -94,6 +94,19 @@ def _write_tokenizer(path):
         f.write("#version: 0.2\nj e\nje e\njee p</w>\n")
 
 
+def _same_unet_cfg(port_cfg, jax_cfg):
+    """The port's UNet config against JAX's: every field of JAX's is the port's,
+    with the same value; the port's SDXL-only fields (per-level heads and
+    depths, linear projections, the text-time embedding) hold their SD-1
+    defaults."""
+    port = {f.name: f for f in dataclasses.fields(port_cfg)}
+    jax_fields = {f.name for f in dataclasses.fields(jax_cfg)}
+    assert jax_fields <= set(port)
+    for name, f in port.items():
+        want = getattr(jax_cfg, name) if name in jax_fields else f.default
+        assert getattr(port_cfg, name) == want, name
+
+
 def _diffusers_states(jax_tiny):
     """{component: state_dict} with the 2-D keys only, as a diffusers SD checkpoint holds them."""
     _, unet_p, vae_p, text_p = jax_tiny
@@ -176,7 +189,7 @@ def test_diffusers_checkpoint_matches_jax(fmt, jax_tiny, tmp_path):
     tb = load_models(path, MODEL_CONFIG, device="cpu")
     assert tb.pretrained and jb.pretrained
     assert _hold_states(tb, jb) > 300
-    assert dataclasses.asdict(tb.unet.cfg) == dataclasses.asdict(jb.unet.cfg)
+    _same_unet_cfg(tb.unet.cfg, jb.unet.cfg)
     assert tb.unet.cfg.lora == 16 and tb.unet.cfg.sample_size == 8
     np.testing.assert_array_equal(tb.tokenizer(PROMPT).input_ids, jb.tokenizer(PROMPT).input_ids)
     # bos, the merged word, eos: the merges were read
@@ -239,7 +252,7 @@ def test_flax_native_checkpoint_round_trip(jax_tiny, tmp_path):
         assert set(own) == set(ref)
         for k, v in own.items():
             np.testing.assert_array_equal(v.numpy(), np.asarray(ref[k]), err_msg=k)
-    assert tb.unet.cfg == UNet3DConfig(**{f.name: getattr(jb.unet.cfg, f.name) for f in dataclasses.fields(UNet3DConfig)})
+    _same_unet_cfg(tb.unet.cfg, jb.unet.cfg)
     np.testing.assert_array_equal(tb.tokenizer(PROMPT).input_ids, jb.tokenizer(PROMPT).input_ids)
     np.testing.assert_allclose(tb.schedule.alphas_cumprod.numpy(), np.asarray(jb.schedule.alphas_cumprod), rtol=1e-6)
 
@@ -280,7 +293,7 @@ def test_safetensors_reader_matches_the_package(tmp_path):
 def test_from_reference_matches_jax(model_config):
     cfg = {**SD_UNET_JSON, "block_out_channels": [320, 640, 1280, 1280], "attention_head_dim": 8,
            "cross_attention_dim": 768, "norm_num_groups": 32, "sample_size": 64, **model_config}
-    assert dataclasses.asdict(UNet3DConfig.from_reference(cfg)) == dataclasses.asdict(JConfig.from_reference(cfg))
+    _same_unet_cfg(UNet3DConfig.from_reference(cfg), JConfig.from_reference(cfg))
 
 
 def test_missing_path_warns_and_builds_random_sd():
