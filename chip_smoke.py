@@ -60,7 +60,11 @@ Phases, each synchronised and timed:
       10 DDIM steps): encode both prompts, VAE-encode a seeded synthetic
       clip, invert with a full capture, edit from the stored payload, decode;
       K1's launches are then listed by shape and by the kernel each took;
-   b. the same edit with FZ_PALLAS_LN=1 (LayerNorm through K4), held to (a);
+   b. the same edit with FZ_PALLAS_LN=1 (LayerNorm through K4), held to (a),
+      and once more under the profiler: K4's kernels in the device trace
+      launched inside the UNet forwards (most by replays of the UNet's
+      piecewise CUDA graphs) equal to the forwards times the UNet's
+      LayerNorms, and K4's counter to the LayerNorms the edit runs;
       then the blend config, config/teaser/jeep_posche_local_latent_blend.yaml
       (lora 160, default sparse-causal, replace cross 0.5 self 0.5,
       blend_words, both blends at th 0.3; 8 frames at 512x512, bf16, 10
@@ -865,6 +869,67 @@ def run_slice(device, m, tag, dtype, frames, res, steps, seed=0):
     outs = dict(emb_src=emb_src, emb_tgt=emb_tgt, latents=latents, traj=traj, edited=edited, decoded=decoded)
     times = dict(text=t_text, vae_encode=t_enc, invert=t_inv, edit=t_edit, vae_decode=t_dec)
     return outs, times
+
+
+def is_k4(kernel_name: str) -> bool:
+    """Whether a device trace's kernel is K4 (csrc/layer_norm.cu's
+    `layer_norm_kernel<T, CPL>`), not one of torch's own LayerNorm kernels
+    (`at::native::...layer_norm_kernel`, demangled or not)."""
+    return "layer_norm_kernel" in kernel_name and "native" not in kernel_name
+
+
+def trace_k4_edit(device, m, steps) -> int:
+    """One edit of `run_slice` under the profiler with LayerNorms through K4
+    (the caller sets FZ_PALLAS_LN=1) and the UNet's graphs captured, so that
+    its forwards replay them: K4's kernels in the device trace that were
+    launched inside a UNet forward (eagerly or by a graph replay: the launch
+    joins its kernel by correlation id) must equal the forwards times the
+    UNet's LayerNorms, and K4's launch counter, which a replay advances by
+    what its capture counted, the count from the LayerNorms the edit runs
+    (each forward's and each text-tower call's). Returns that count."""
+    import torch
+
+    from fatezero_tpu_torch.common import profiling
+    from fatezero_tpu_torch.models.layers import FusedLayerNorm
+    from fatezero_tpu_torch.ops import fused_norm as FN
+
+    text_calls = []
+    hook = m.text_encoder.register_forward_hook(lambda *a: text_calls.append(1))
+    counted = FN.layer_norm_kernel.launches
+    profiling.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            run_slice(device, m, "random:sd K4 traced", torch.bfloat16, FRAMES, RES, steps)
+            torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    counted = FN.layer_norm_kernel.launches - counted
+    seen = profiling.recorded()
+    forwards = seen["spans"]["fz.unet.forward"]["calls"]
+    graphed = seen["counters"].get("unet.graphed", 0)
+    launched_at, spans, kernels = {}, [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if is_k4(e.name()):
+                kernels.append(e.correlation_id())
+        elif e.name() == "fz.unet.forward":
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif e.name().startswith("cu"):
+            launched_at[e.correlation_id()] = e.start_ns()
+    in_forwards = sum(any(s <= launched_at.get(c, -1) < e for s, e in spans) for c in kernels)
+    per_forward = sum(isinstance(x, FusedLayerNorm) for x in m.unet.modules())
+    per_text = sum(isinstance(x, FusedLayerNorm) for x in m.text_encoder.modules())
+    expect = forwards * per_forward + len(text_calls) * per_text
+    log(f"[edit K4] traced edit: K4 kernels launched inside the {forwards} UNet forwards {in_forwards}, from the "
+        f"LayerNorms' shapes {forwards * per_forward} ({per_forward} a forward); in the whole trace {len(kernels)}; "
+        f"launch counter {counted}, from the shapes {expect} (+ {len(text_calls)} text calls x {per_text}); "
+        f"{graphed} of the {forwards} forwards replayed their piecewise graphs")
+    if not (in_forwards == forwards * per_forward and counted == expect and graphed == forwards > 0):
+        raise AssertionError(f"the graphed K4 edit: {in_forwards} K4 kernels traced in {forwards} forwards "
+                             f"({forwards * per_forward} expected), {counted} counted ({expect} expected), "
+                             f"{graphed} forwards graphed")
+    return expect
 
 
 def tuning_setup(device, tag, model_config, dtype, frames, res, seed, lr):
@@ -3241,6 +3306,13 @@ def main() -> int:
     _, times2 = run_slice(device, sd, "random:sd again", torch.bfloat16, FRAMES, RES, STEPS)
     log(f"[edit K4] phase seconds in turns: default {json.dumps(times)}; K4 {json.dumps(ln_times)}; "
         f"K4 {json.dumps(ln_times2)}; default {json.dumps(times2)}")
+    # the UNet forwards replay piecewise CUDA graphs (models/unet_graph.py), so most K4 launches run inside
+    # captured pieces, where the wrapper that counts them does not: one more K4 edit, traced, holds K4 on the
+    # device and the counter to the LayerNorms' count, which the counted edit and the kernels line below give
+    k4_expected = with_k4(lambda: trace_k4_edit(device, sd, STEPS))
+    if ln_launches["layer_norm_kernel"] != k4_expected:
+        raise AssertionError(f"the K4 edit counted {ln_launches['layer_norm_kernel']} K4 launches, its LayerNorms "
+                             f"give {k4_expected}")
     del sd
     torch.cuda.empty_cache()
 

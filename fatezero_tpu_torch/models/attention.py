@@ -30,6 +30,7 @@ from torch import nn
 
 from fatezero_tpu_torch.common.profiling import count, span, spanned
 from fatezero_tpu_torch.models.layers import FeedForward, FusedGroupNorm, FusedLayerNorm
+from fatezero_tpu_torch.models.unet_graph import EagerModule, run_eager
 from fatezero_tpu_torch.ops.flash_attention import fused_attention
 from fatezero_tpu_torch.ops.video_ops import gather_sparse_kv, local_referenced_frames
 from fatezero_tpu_torch.parallel.sharding import copy_to_tensor, current_seq_mesh, global_frames, row_parallel_linear
@@ -49,7 +50,7 @@ def _merge_heads5(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*lead, s, h * d)
 
 
-class Attention(nn.Module):
+class Attention(EagerModule):
     """Multi-head attention with an optional controller.
 
     Self-attention input is [b, f, s, c]; the cross-attention context is
@@ -144,7 +145,7 @@ class Attention(nn.Module):
         return row_parallel_linear(self.to_out[0], _merge_heads5(out))  # [B, F, S, inner] -> proj
 
 
-class TemporalAttention(nn.Module):
+class TemporalAttention(EagerModule):
     """Per-pixel self-attention over frames with a zero-initialised output
     projection (identity residual at init). Input/output [b, f, d, c]; fp32
     softmax. Under a seq mesh the local queries attend to every frame's K and
@@ -185,7 +186,9 @@ class TemporalAttention(nn.Module):
 
 class SpatioTemporalTransformerBlock(nn.Module):
     """attn1 (sparse-causal self) -> attn2 (text cross) -> FF -> temporal attn,
-    each pre-LayerNormed with a residual add, on [b, f, s, c]."""
+    each pre-LayerNormed with a residual add, on [b, f, s, c]. The three
+    attention modules are called through `run_eager`: in a graphed UNet
+    forward (models/unet_graph.py) they run eagerly between the pieces."""
 
     def __init__(
         self,
@@ -215,13 +218,13 @@ class SpatioTemporalTransformerBlock(nn.Module):
 
     def forward(self, x, context, video_shape, attn_ctx=None, place=None):
         b, f = video_shape
-        x = x + self.attn1(
-            self.norm1(x), attn_ctx=attn_ctx, place=place, sparse_indices=self.sparse_indices
+        x = x + run_eager(
+            self.attn1, self.norm1(x), attn_ctx=attn_ctx, place=place, sparse_indices=self.sparse_indices
         )
-        x = x + self.attn2(self.norm2(x), context, attn_ctx=attn_ctx, place=place)
+        x = x + run_eager(self.attn2, self.norm2(x), context, attn_ctx=attn_ctx, place=place)
         x = x + self.ff(self.norm3(x))
         if self.temporal_attention and global_frames(f) > 1:
-            x = x + self.attn_temporal(self.norm_temporal(x))
+            x = x + run_eager(self.attn_temporal, self.norm_temporal(x))
         return x
 
 

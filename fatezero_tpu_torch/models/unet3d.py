@@ -48,6 +48,7 @@ from fatezero_tpu_torch.models.resnet import (
     ResnetBlockPseudo3D,
     UpsamplePseudo3D,
 )
+from fatezero_tpu_torch.models.unet_graph import PiecewiseGraphs, graph_engages
 from fatezero_tpu_torch.parallel.sharding import current_seq_mesh, seq_mesh_scope, tensor_size
 from fatezero_tpu_torch.ptp.context import MAX_CONTROLLED_TOKENS, AttnContext
 
@@ -253,6 +254,7 @@ class UNetPseudo3DConditionModel(nn.Module):
 
         self.conv_norm_out = FusedGroupNorm(cfg.norm_num_groups, ch0, cfg.norm_eps, **kw)
         self.conv_out = PseudoConv3d(ch0, cfg.out_channels, 3, lora_rank=cfg.lora, **kw)
+        self._graphs = PiecewiseGraphs()  # models/unet_graph.py
 
     @spanned("fz.unet.forward")
     def forward(
@@ -275,23 +277,45 @@ class UNetPseudo3DConditionModel(nn.Module):
         that size those rows are sliced off. If every row is a replay row (a
         capture-only forward) the rest is skipped and None is returned: the
         caller reads ``attn_ctx.captured``. Where even the last up block is
-        controlled, nothing is dropped."""
-        cfg = self.cfg
+        controlled, nothing is dropped.
+
+        Where `models/unet_graph.py::graph_engages` holds (a CUDA device,
+        grad off, no mesh, no hook a replay would skip), the forward runs as
+        piecewise CUDA graphs: the same operations, replayed between eager
+        calls of the attention modules; the returned tensor is the caller's.
+        A forward with grad on (training) releases them."""
         if tensor_size() != self.tensor_shards:
             raise RuntimeError(
                 f"the UNet's weights are split for tensor = {self.tensor_shards}, the mesh in scope has "
                 f"tensor = {tensor_size()} (shard_unet_ and seq_mesh_scope must name one mesh)"
             )
-        b = sample.shape[0]
+        if (added_cond is None) != (self.add_embedding is None):
+            raise ValueError("the text-time UNet needs added_cond (text_embeds, time_ids); another UNet takes none")
+        if graph_engages(self, sample.device):
+            return self._graphs.forward(self, sample, timesteps, encoder_hidden_states, attn_ctx, drop_replay_rows,
+                                        added_cond)
+        if torch.is_grad_enabled():
+            self.release_graphs()
         timesteps = torch.as_tensor(timesteps, device=sample.device)
+        return self._forward(sample, timesteps, encoder_hidden_states, attn_ctx, drop_replay_rows, added_cond)
+
+    def release_graphs(self) -> None:
+        """Drop the forward's piecewise CUDA graphs and return their memory
+        to the card (models/unet_graph.py::PiecewiseGraphs.release)."""
+        self._graphs.release()
+
+    def _forward(self, sample, timesteps: torch.Tensor, encoder_hidden_states, attn_ctx, drop_replay_rows: int,
+                 added_cond) -> Optional[torch.Tensor]:
+        """The forward's operations, with the timesteps on the device; the
+        attention modules called through `run_eager` (models/attention.py)."""
+        cfg = self.cfg
+        b = sample.shape[0]
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(b)
         t_emb = get_timestep_embedding(
             timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift
         ).to(self.dtype)
         temb = self.time_embedding(t_emb)
-        if (added_cond is None) != (self.add_embedding is None):
-            raise ValueError("the text-time UNet needs added_cond (text_embeds, time_ids); another UNet takes none")
         if added_cond is not None:
             with span("fz.unet.add_embedding"):
                 time_ids = added_cond["time_ids"]

@@ -70,16 +70,13 @@ import torch
 from fatezero_tpu_torch.common import profiling
 from fatezero_tpu_torch.common.profiling import span, spanned
 from fatezero_tpu_torch.models.vae import VAE_SCALE
-from fatezero_tpu_torch.ops import flash_attention as FA
 from fatezero_tpu_torch.ops import schedule as S
-from fatezero_tpu_torch.ops.fused_norm import layer_norm_kernel
+from fatezero_tpu_torch.ops.graph_capture import CountedCapture, release_workspaces, replayed
 from fatezero_tpu_torch.parallel.sharding import seq_mesh_scope, tensor_block, tensor_gather, tensor_layout
 
 TRAINABLE = ("attn_temporal", "to_q")
 TEMPORAL_CONV = ("conv_temporal",)  # holds the flax conv_temporal_* and lora_temporal_* leaves
 STATE_FILE = "training_state.pt"
-# the hand-written kernels' launch counters: a capture launches nothing, each replay what the capture counted
-LAUNCH_COUNTED = (FA.flash_forward, FA.flash_dq, FA.flash_dkv, layer_norm_kernel)
 
 
 def trainable_mask(module: torch.nn.Module, patterns=TRAINABLE, train_temporal_conv: bool = False) -> Dict[str, bool]:
@@ -256,21 +253,16 @@ class _UpdateGraph:
             group["lr"] = self.lr
         for p in trainer.trainable.values():
             p.grad = None  # the backward then writes the gradients into the graph's pool
-        before = [fn.launches for fn in LAUNCH_COUNTED]
         graph = torch.cuda.CUDAGraph()
-        with profiling.discarded(), torch.cuda.graph(graph):
+        with CountedCapture() as counted, torch.cuda.graph(graph):
             clip, prior, total = trainer._objective(**self.inputs)
             total.backward()
             self.loss = trainer._clip_and_step(state, clip, prior)
             self.grad_norm = state["grad_norm"]
-        self.launched = [fn.launches - n for fn, n in zip(LAUNCH_COUNTED, before)]
-        for fn, n in zip(LAUNCH_COUNTED, before):
-            fn.launches = n
+        self.launched = counted.launched
         for p in trainer.trainable.values():
             p.grad = None  # held by no one between updates, as in the eager path; the replays write them in the pool
-        # cuBLAS keeps a workspace per stream: the warm-up's side stream and the capture's got their own, which
-        # no eager work uses again (the capture's stays in the graph's pool, as torch's own graph trees leave it)
-        torch._C._cuda_clearCublasWorkspaces()
+        release_workspaces()
         self.graph = graph
 
     def replay(self, inputs: Dict[str, Optional[torch.Tensor]], lr: float) -> None:
@@ -279,8 +271,7 @@ class _UpdateGraph:
                 self.inputs[n].copy_(x)
         self.lr.fill_(lr)
         self.graph.replay()
-        for fn, n in zip(LAUNCH_COUNTED, self.launched):
-            fn.launches += n
+        replayed(self.launched)
 
 
 # --------------------------------------------------------------------- trainer
@@ -512,7 +503,9 @@ class DDPMTrainer:
     def step(self, state, images, text_emb, generator: torch.Generator, class_images=None, class_text_emb=None):
         """One update on images [f, h, w, 3] in [-1, 1] with text_emb [1, 77, C] (cond);
         the randoms come from `generator` (a host generator). Returns (state, loss).
-        Where `graph_engages`, a replay of the key's CUDA graph after one eager update."""
+        Where `graph_engages`, a replay of the key's CUDA graph after one eager update.
+        The UNet's inference graphs (validation sampling's) are released first."""
+        self.unet.release_graphs()
         device = images.device
         draws = self.draw(generator, images.shape, None if class_images is None else class_images.shape)
         draws = draws.to(device)
