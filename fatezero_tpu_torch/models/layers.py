@@ -87,13 +87,18 @@ class FeedForward(nn.Module):
         return row_parallel_linear(self.net[2], self.net[0](copy_to_tensor(x)))
 
 
+def layer_norm_takes_k4() -> bool:
+    """Whether LayerNorms take the LayerNorm kernel K4
+    (ops/fused_norm.py::layer_norm). As in the JAX package, FZ_PALLAS_LN=1
+    (read at each call) routes them through it; the default is the plain
+    math."""
+    return bool(os.environ.get("FZ_PALLAS_LN"))
+
+
 class FusedLayerNorm(nn.Module):
     """LayerNorm over the last axis with fp32 E[x^2]-E[x]^2 statistics
-    (eps 1e-5, torch nn.LayerNorm's default); output in the model dtype.
-
-    As in the JAX package, FZ_PALLAS_LN=1 (read at each call) routes it
-    through the LayerNorm kernel K4 (ops/fused_norm.py::layer_norm); the
-    default is the plain math."""
+    (eps 1e-5, torch nn.LayerNorm's default); output in the model dtype,
+    through K4 where `layer_norm_takes_k4`."""
 
     def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.float32, device=None):
         super().__init__()
@@ -103,7 +108,7 @@ class FusedLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if os.environ.get("FZ_PALLAS_LN"):
+        if layer_norm_takes_k4():
             return layer_norm(x, self.weight, self.bias, self.eps).to(self.dtype)
         return _ln_math(x, self.weight, self.bias, self.eps).to(self.dtype)
 

@@ -47,16 +47,18 @@ the whole tensors, and `training_state.pt` has the world of one's layout.
 Each rank then writes its block of the masters into its parameters.
 
 CUDA graphs (the JAX package has none; its update is one jitted function, and
-the semantics here are the eager update's): where `graph_engages` holds,
-`step` runs the first update of a static key eagerly on a side stream, then
-captures everything of an update after the VAE encodes (noising, the UNet
-forward under checkpointing, the losses, the backward with its recomputation
-and the flash kernels, the clip, AdamW's step and the write-back) into one
-`torch.cuda.CUDAGraph`, and replays it for every later update of that key:
-each update's latents, draws and embeddings are copied into the graph's
-static inputs and its learning rate into a device scalar. The encodes stay
-eager (a caller may hook the VAE). AdamW is built `capturable` on the card
-(device-side step counts), so one optimizer serves both paths.
+the semantics here are the eager update's): where `_graphed` holds, `step`
+runs the lifecycle of the port's one CUDA-graph layer (ops/graph_capture.py):
+the first update of a static key runs eagerly on a side stream, then
+everything of an update after the VAE encodes (noising, the UNet forward
+under checkpointing, the losses, the backward with its recomputation and the
+flash kernels, the clip, AdamW's step and the write-back) is captured into
+one CUDA graph, replayed for every later update of the key with the update's
+latents, draws, embeddings and learning rate copied in. The key holds the
+optimizer, and the trainer keeps one key; `init_state` and
+`load_training_state` drop it too. The encodes stay eager (a caller may hook
+the VAE). AdamW is built `capturable` on the card (device-side step counts),
+so one optimizer serves both paths.
 """
 from __future__ import annotations
 
@@ -71,7 +73,7 @@ from fatezero_tpu_torch.common import profiling
 from fatezero_tpu_torch.common.profiling import span, spanned
 from fatezero_tpu_torch.models.vae import VAE_SCALE
 from fatezero_tpu_torch.ops import schedule as S
-from fatezero_tpu_torch.ops.graph_capture import CountedCapture, release_workspaces, replayed
+from fatezero_tpu_torch.ops.graph_capture import GraphCache, engages, side_stream, static_key
 from fatezero_tpu_torch.parallel.sharding import seq_mesh_scope, tensor_block, tensor_gather, tensor_layout
 
 TRAINABLE = ("attn_temporal", "to_q")
@@ -170,11 +172,15 @@ class Draws:
 
 
 def save_training_state(path: str, state: Dict) -> None:
-    """Persist the optimizer state, the fp32 masters and the step for exact resume."""
+    """Persist the optimizer state, the fp32 masters and the step for exact resume.
+    Each group's learning rate is written as a number, also where it is a
+    device scalar (a CUDA graph's capture reads one)."""
     os.makedirs(path, exist_ok=True)
+    optimizer = state["optimizer"].state_dict()
+    for group in optimizer["param_groups"]:
+        group["lr"] = float(group["lr"])
     torch.save(
-        {"step": state["step"], "optimizer": state["optimizer"].state_dict(),
-         "master": {n: m.detach() for n, m in state["master"].items()}},
+        {"step": state["step"], "optimizer": optimizer, "master": {n: m.detach() for n, m in state["master"].items()}},
         os.path.join(path, STATE_FILE),
     )
 
@@ -200,78 +206,9 @@ def load_training_state(path: str, trainer: "DDPMTrainer", state: Dict) -> Dict:
         if "capturable" in now:
             group["capturable"] = now["capturable"]
     opt.load_state_dict(saved["optimizer"])
-    trainer._graph = None  # the loaded state tensors are not those a graph captured
+    trainer._graphs.release()  # the loaded state tensors are not those a graph captured
     state["step"] = int(saved["step"])
     return state
-
-
-# ---------------------------------------------------------------- CUDA graphs
-
-WARMUP_UPDATES = 1  # eager updates of a new static key before its capture
-
-
-def hooked(module: torch.nn.Module) -> bool:
-    """Whether any submodule has a forward, pre-forward or backward hook."""
-    return any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks or m._backward_pre_hooks
-               for m in module.modules())
-
-
-def graph_engages(device: torch.device, unet: torch.nn.Module, mesh, optimizer: str) -> bool:
-    """Whether `DDPMTrainer.step` runs an update on `device` (the UNet's) as a
-    CUDA graph: on a CUDA device, with no mesh (its collectives stay eager),
-    with torch's AdamW (AdamW8bit and Adafactor stay eager), no hook on a
-    UNet module (a replay would skip it) and grad mode on."""
-    return (device.type == "cuda" and mesh is None and optimizer == "adamw" and torch.is_grad_enabled()
-            and not hooked(unet))
-
-
-def graph_key(tensors, prediction_type: str) -> tuple:
-    """The static key of a captured update: the shape and dtype of each of its
-    inputs (None for an absent class term) and the prediction type."""
-    return tuple(None if x is None else (tuple(x.shape), x.dtype) for x in tensors) + (prediction_type,)
-
-
-class _UpdateGraph:
-    """One update captured as a CUDA graph for one static key and one
-    optimizer (its masters and state). `warm` counts the eager updates run for
-    the key; after the capture `inputs` holds the static tensors the graph
-    reads, `lr` the learning rate it reads, `loss` and `grad_norm` the static
-    tensors it writes, and `launched` each counted kernel's launches in it."""
-
-    def __init__(self, key: tuple, optimizer):
-        self.key, self.optimizer = key, optimizer
-        self.warm = 0
-        self.graph = None
-
-    def capture(self, trainer: "DDPMTrainer", state: Dict, inputs: Dict[str, Optional[torch.Tensor]]) -> None:
-        """Capture the update on static copies of `inputs`. The host advances
-        nothing: not the step, the launch counters or the recorded spans."""
-        device = inputs["latents"].device
-        self.inputs = {n: None if x is None else x.to(device, copy=True) for n, x in inputs.items()}
-        self.lr = torch.zeros((), dtype=torch.float32, device=device)
-        for group in state["optimizer"].param_groups:
-            group["lr"] = self.lr
-        for p in trainer.trainable.values():
-            p.grad = None  # the backward then writes the gradients into the graph's pool
-        graph = torch.cuda.CUDAGraph()
-        with CountedCapture() as counted, torch.cuda.graph(graph):
-            clip, prior, total = trainer._objective(**self.inputs)
-            total.backward()
-            self.loss = trainer._clip_and_step(state, clip, prior)
-            self.grad_norm = state["grad_norm"]
-        self.launched = counted.launched
-        for p in trainer.trainable.values():
-            p.grad = None  # held by no one between updates, as in the eager path; the replays write them in the pool
-        release_workspaces()
-        self.graph = graph
-
-    def replay(self, inputs: Dict[str, Optional[torch.Tensor]], lr: float) -> None:
-        for n, x in inputs.items():
-            if x is not None:
-                self.inputs[n].copy_(x)
-        self.lr.fill_(lr)
-        self.graph.replay()
-        replayed(self.launched)
 
 
 # --------------------------------------------------------------------- trainer
@@ -325,7 +262,7 @@ class DDPMTrainer:
         cfg = vae.cfg
         self._vae_factor = 2 ** (len(cfg.block_out_channels) - 1)
         self._latent_channels = cfg.latent_channels
-        self._graph: Optional[_UpdateGraph] = None
+        self._graphs = GraphCache(1)  # the update's CUDA graph (ops/graph_capture.py)
 
     def init_state(self) -> Dict:
         """{"step", "optimizer", "master"}: master holds an fp32 copy of each
@@ -349,7 +286,7 @@ class DDPMTrainer:
         else:
             opt = torch.optim.AdamW(params, lr=self.lr(0), betas=(0.9, 0.999), eps=1e-8,
                                     weight_decay=self.weight_decay, capturable=params[0].is_cuda)
-        self._graph = None
+        self._graphs.release()
         return {"step": 0, "optimizer": opt, "master": master}
 
     # ------------------------------------------------------------------ draws
@@ -499,56 +436,62 @@ class DDPMTrainer:
             elif param is not master:
                 param.copy_(master)
 
+    def _graphed(self, device: torch.device) -> bool:
+        """Whether `step` runs an update on `device` (the UNet's) as a CUDA
+        graph: where the layer's rule holds (ops/graph_capture.py::engages)
+        over every UNet module under the trainer's mesh, with grad on and
+        torch's AdamW (AdamW8bit and Adafactor stay eager)."""
+        with seq_mesh_scope(self.mesh):
+            return torch.is_grad_enabled() and self.optimizer == "adamw" and engages(device, self.unet.modules)
+
     @spanned("fz.trainer.step")
     def step(self, state, images, text_emb, generator: torch.Generator, class_images=None, class_text_emb=None):
         """One update on images [f, h, w, 3] in [-1, 1] with text_emb [1, 77, C] (cond);
         the randoms come from `generator` (a host generator). Returns (state, loss).
-        Where `graph_engages`, a replay of the key's CUDA graph after one eager update.
+        Where `_graphed`, a replay of the key's CUDA graph after one eager update.
         The UNet's inference graphs (validation sampling's) are released first."""
         self.unet.release_graphs()
         device = images.device
         draws = self.draw(generator, images.shape, None if class_images is None else class_images.shape)
         draws = draws.to(device)
-        if not graph_engages(next(self.unet.parameters()).device, self.unet, self.mesh, self.optimizer):
+        if not self._graphed(next(self.unet.parameters()).device):
             return state, self._update(state, images, text_emb, draws, class_images, class_text_emb)
         prior = self.prior_preservation is not None and class_images is not None
-        key = graph_key((images, text_emb) + ((class_images, class_text_emb) if prior else (None, None)),
-                        self.schedule.prediction_type)
-        graph = self._graph_for(state, key)
-        if graph.warm < WARMUP_UPDATES:
-            graph.warm += 1
-            return state, self._side_stream_update(state, images, text_emb, draws, class_images, class_text_emb)
+        classes = dict(class_images=class_images, class_text_emb=class_text_emb) if prior else {}
+        entry = self._graphs.entry(static_key(dict(images=images, text_emb=text_emb, **classes),
+                                              self.schedule.prediction_type, state["optimizer"]))
+        if entry.warming():
+            with side_stream():  # as a whole-network capture's warm-up runs
+                return state, self._update(state, images, text_emb, draws, class_images, class_text_emb)
         with span("fz.trainer.forward"):
             latents, class_latents = self._latents(images, draws.vae_noise, class_images, draws.class_vae_noise)
-        inputs = dict(latents=latents, text_emb=text_emb, noise=draws.noise, t=draws.t, class_latents=class_latents,
-                      class_text_emb=None, class_noise=None, class_t=None)
+        objective = dict(latents=latents, text_emb=text_emb, noise=draws.noise, t=draws.t, class_latents=class_latents)
         if prior:
-            inputs.update(class_text_emb=class_text_emb, class_noise=draws.class_noise, class_t=draws.class_t)
+            objective.update(class_text_emb=class_text_emb, class_noise=draws.class_noise, class_t=draws.class_t)
+        inputs = dict(objective=objective, lr=float(self.lr(state["step"])))
         with span("fz.trainer.graph"):
-            if graph.graph is None:
-                graph.capture(self, state, inputs)
-            graph.replay(inputs, self.lr(state["step"]))
+            if entry.schedule is None:
+                for p in self.trainable.values():
+                    p.grad = None  # the backward then writes the gradients into the graph's pool
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()  # as torch.cuda.graph does: the later updates' peak memory follows it
+                with self._graphs.capture(entry, inputs, latents.device):
+                    for group in state["optimizer"].param_groups:
+                        group["lr"] = entry.inputs["lr"]
+                    clip, prior_loss, total = self._objective(**entry.inputs["objective"])
+                    total.backward()
+                    entry.outputs = self._clip_and_step(state, clip, prior_loss), state["grad_norm"]
+                for p in self.trainable.values():
+                    p.grad = None  # held by no one between updates, as in the eager path; the replays write them
+            else:
+                entry.replay(inputs, None)
+        for group in state["optimizer"].param_groups:
+            group["lr"] = inputs["lr"]  # the schedule's value, as an eager update leaves it; the graph reads its copy
         profiling.count("trainer.graphed")
         state["step"] += 1
-        state["grad_norm"] = graph.grad_norm.clone()
-        return state, graph.loss.clone()
-
-    def _graph_for(self, state, key: tuple) -> _UpdateGraph:
-        """The graph of this key and state; another key or state drops the
-        previous graph (and with it its memory pool) and starts anew."""
-        if self._graph is None or self._graph.key != key or self._graph.optimizer is not state["optimizer"]:
-            self._graph = _UpdateGraph(key, state["optimizer"])
-        return self._graph
-
-    def _side_stream_update(self, *args):
-        """An eager update on a side stream, as a whole-network capture's warm-up runs."""
-        main = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            loss = self._update(*args)
-        main.wait_stream(side)
-        return loss
+        loss, grad_norm = entry.outputs
+        state["grad_norm"] = grad_norm.clone()
+        return state, loss.clone()
 
     def run_steps(
         self,

@@ -1,8 +1,10 @@
-"""The trainer's CUDA-graphed update (trainer/ddpm_trainer.py).
+"""The trainer's CUDA-graphed update (trainer/ddpm_trainer.py, through the
+CUDA-graph layer ops/graph_capture.py).
 
-On the CPU: the rule that engages the graph (`graph_engages`), the static key
-(`graph_key`) and when the trainer drops its graph, on the random:tiny
-geometry; the graph itself never engages there.
+On the CPU: the rule that engages the graph (`DDPMTrainer._graphed`), the
+static key (`static_key` over the update's inputs) and when the trainer drops
+its graph, on the random:tiny geometry; the graph itself never engages
+there. Also that a saved state holds each learning rate as a number.
 
 On the card (gpu): two trainers from identical weights, state and generator
 seed, one forced eager through `_update`, one through `step` (one eager
@@ -30,6 +32,7 @@ import torch
 
 from fatezero_tpu_torch.models.loader import load_models
 from fatezero_tpu_torch.ops import flash_attention as FA
+from fatezero_tpu_torch.ops import graph_capture as GC
 from fatezero_tpu_torch.parallel.sharding import Mesh
 from fatezero_tpu_torch.trainer import ddpm_trainer as T
 
@@ -56,41 +59,54 @@ CUDA = torch.device("cuda")
 @pytest.mark.parametrize("case, engages", [
     ("cuda", True), ("cpu", False), ("mesh", False), ("adamw8bit", False), ("adafactor", False),
     ("forward_hook", False), ("forward_pre_hook", False), ("backward_hook", False), ("no_grad", False),
+    ("global_hook", False), ("capturing", False), ("global_backward_hook", False),
 ])
-def test_rule_engages_on_a_card_alone_with_adamw_no_mesh_no_hook(tiny, case, engages):
+def test_rule_engages_on_a_card_alone_with_adamw_no_mesh_no_hook(tiny, monkeypatch, case, engages):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: case == "capturing")
     device = torch.device("cpu") if case == "cpu" else CUDA
     mesh = Mesh((1, 1, 1), "cpu") if case == "mesh" else None
     optimizer = case if case in ("adamw8bit", "adafactor") else "adamw"
+    trainer = _trainer(tiny, optimizer=optimizer, mesh=mesh)
     site = tiny.unet.down_blocks[0].resnets[0]
+    module = torch.nn.modules.module
     handle = {
         "forward_hook": lambda: site.register_forward_hook(lambda *a: None),
         "forward_pre_hook": lambda: site.register_forward_pre_hook(lambda *a: None),
         "backward_hook": lambda: site.register_full_backward_hook(lambda *a: None),
+        "global_hook": lambda: module.register_module_forward_hook(lambda *a: None),
+        "global_backward_hook": lambda: module.register_module_full_backward_hook(lambda *a: None),
     }.get(case, lambda: None)()
     try:
         with torch.set_grad_enabled(case != "no_grad"):
-            assert T.graph_engages(device, tiny.unet, mesh, optimizer) is engages
+            assert trainer._graphed(device) is engages
     finally:
         if handle is not None:
             handle.remove()
-    assert not T.hooked(tiny.unet)
+    assert not GC.hooked(tiny.unet.modules()) and not trainer._graphs.entries
+
+
+def _key(frames, width, emb, optimizer, classes=None, prediction="epsilon"):
+    """The update's static key, as `DDPMTrainer.step` forms it."""
+    inputs = dict(images=torch.zeros(frames, 64, width, 3), text_emb=emb, **(classes or {}))
+    return GC.static_key(inputs, prediction, optimizer)
 
 
 def test_key_follows_shapes_dtypes_class_term_and_prediction():
-    clip, emb = torch.zeros(2, 64, 64, 3), torch.zeros(1, 77, 32)
-    cls, cemb = torch.zeros(1, 64, 64, 3), torch.zeros(1, 77, 32)
-    key = T.graph_key((clip, emb, None, None), "epsilon")
-    assert T.graph_key((torch.ones(2, 64, 64, 3), emb, None, None), "epsilon") == key  # values are copied in
+    emb, opt = torch.zeros(1, 77, 32), object()
+    classes = dict(class_images=torch.zeros(1, 64, 64, 3), class_text_emb=torch.zeros(1, 77, 32))
+    key = _key(2, 64, emb, opt)
+    ones = GC.static_key(dict(images=torch.ones(2, 64, 64, 3), text_emb=emb), "epsilon", opt)
+    assert ones == key  # values are copied in
     others = [
-        ((torch.zeros(3, 64, 64, 3), emb, None, None), "epsilon"),  # frames
-        ((torch.zeros(2, 64, 96, 3), emb, None, None), "epsilon"),  # crop
-        ((clip.double(), emb, None, None), "epsilon"),  # dtype
-        ((clip, torch.zeros(1, 77, 64), None, None), "epsilon"),  # text width
-        ((clip, emb, cls, cemb), "epsilon"),  # class term
-        ((clip, emb, None, None), "v_prediction"),
+        _key(3, 64, emb, opt),  # frames
+        _key(2, 96, emb, opt),  # crop
+        GC.static_key(dict(images=torch.zeros(2, 64, 64, 3).double(), text_emb=emb), "epsilon", opt),  # dtype
+        _key(2, 64, torch.zeros(1, 77, 64), opt),  # text width
+        _key(2, 64, emb, opt, classes),  # class term
+        _key(2, 64, emb, opt, prediction="v_prediction"),
+        _key(2, 64, emb, object()),  # another optimizer
     ]
-    keys = [T.graph_key(*o) for o in others]
-    assert key not in keys and len(set(keys)) == len(keys)
+    assert key not in others and len(set(others)) == len(others)
 
 
 def test_cpu_step_stays_eager(tiny):
@@ -98,26 +114,39 @@ def test_cpu_step_stays_eager(tiny):
     state = trainer.init_state()
     gen = torch.Generator().manual_seed(0)
     state, loss = trainer.step(state, torch.rand(F, 64, 64, 3) * 2 - 1, torch.randn(1, 77, 32), gen)
-    assert trainer._graph is None and state["step"] == 1 and torch.isfinite(loss)
+    assert not trainer._graphs.entries and state["step"] == 1 and torch.isfinite(loss)
 
 
 def test_graph_dropped_on_new_key_state_init_and_load(tiny, tmp_path):
     trainer = _trainer(tiny)
+    graphs, state = trainer._graphs, trainer.init_state()
+    emb = torch.zeros(1, 77, 32)
+    key = _key(F, 64, emb, state["optimizer"])
+    graph = graphs.entry(key)
+    assert graphs.entry(key) is graph and graph.warm == 0
+    other = _key(F, 96, emb, state["optimizer"])
+    assert graphs.entry(other) is not graph and list(graphs.entries) == [other]
+    graph = graphs.entries[other]
+    fresh = torch.optim.AdamW(list(state["master"].values()), lr=LR)
+    assert graphs.entry(_key(F, 96, emb, fresh)) is not graph
     state = trainer.init_state()
-    key = T.graph_key((torch.zeros(F, 64, 64, 3), torch.zeros(1, 77, 32), None, None), "epsilon")
-    graph = trainer._graph_for(state, key)
-    assert trainer._graph_for(state, key) is graph and graph.warm == 0
-    other = T.graph_key((torch.zeros(F, 64, 96, 3), torch.zeros(1, 77, 32), None, None), "epsilon")
-    assert trainer._graph_for(state, other) is not graph and trainer._graph.key == other
-    graph = trainer._graph
-    fresh = {**state, "optimizer": torch.optim.AdamW(list(state["master"].values()), lr=LR)}
-    assert trainer._graph_for(fresh, other) is not graph
-    state = trainer.init_state()
-    assert trainer._graph is None
-    trainer._graph_for(state, key)
+    assert not graphs.entries
+    graphs.entry(_key(F, 64, emb, state["optimizer"]))
     T.save_training_state(str(tmp_path), state)
     T.load_training_state(str(tmp_path), trainer, state)
-    assert trainer._graph is None
+    assert not graphs.entries
+
+
+def test_saved_learning_rate_is_a_number(tiny, tmp_path):
+    """A graphed update leaves each group's learning rate as the device
+    scalar its graph reads; the saved state holds a number all the same."""
+    trainer = _trainer(tiny)
+    state = trainer.init_state()
+    state["optimizer"].param_groups[0]["lr"] = torch.tensor(LR)
+    T.save_training_state(str(tmp_path), state)
+    saved = torch.load(tmp_path / T.STATE_FILE, map_location="cpu", weights_only=True)
+    lrs = [g["lr"] for g in saved["optimizer"]["param_groups"]]
+    assert all(type(lr) is float for lr in lrs) and lrs[0] == float(torch.tensor(LR))
 
 
 def test_load_keeps_this_optimizers_step_counts(tiny, tmp_path):
@@ -173,10 +202,10 @@ def test_graphed_updates_match_eager_ones_on_the_card(tmp_path, dtype):
         state = trainer.init_state()
         state, first = trainer.run_steps(state, frames, emb, gen, 3, crop=CROP, class_images=class_images,
                                          class_text_emb=class_emb)
-        captured = trainer._graph is not None and trainer._graph.graph is not None
+        captured = any(e.schedule is not None for e in trainer._graphs.entries.values())
         T.save_training_state(str(tmp_path / name), state)
         state = T.load_training_state(str(tmp_path / name), trainer, trainer.init_state())
-        assert trainer._graph is None
+        assert not trainer._graphs.entries
         state, second = trainer.run_steps(state, frames, emb, gen, 3, crop=CROP, class_images=class_images,
                                           class_text_emb=class_emb)
         torch.cuda.synchronize()

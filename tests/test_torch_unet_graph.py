@@ -1,7 +1,8 @@
-"""The UNet's piecewise CUDA graphs (models/unet_graph.py).
+"""The UNet's piecewise CUDA graphs (models/unet_graph.py, through the
+CUDA-graph layer ops/graph_capture.py).
 
 On the CPU: the rule that engages them (`graph_engages`), the static key
-(`graph_key`), when the graphs are dropped (a swapped parameter or module)
+(`static_key` over the forward's inputs), when the graphs are dropped (a swapped parameter or module)
 and released (a forward with grad on, a trainer's update, a key past
 `MAX_KEYS`; never while a stream captures), that only an `EagerModule` runs
 between the pieces, and that a CPU forward is the eager one; the graphs
@@ -34,9 +35,10 @@ import torch
 
 from fatezero_tpu_torch.common import profiling
 from fatezero_tpu_torch.models import unet_graph as G
-from fatezero_tpu_torch.models.layers import FusedLayerNorm
+from fatezero_tpu_torch.models.layers import FusedLayerNorm, layer_norm_takes_k4
 from fatezero_tpu_torch.models.loader import load_models
 from fatezero_tpu_torch.ops import flash_attention as FA
+from fatezero_tpu_torch.ops import graph_capture as GC
 from fatezero_tpu_torch.ops.fused_norm import layer_norm_kernel
 from fatezero_tpu_torch.parallel.sharding import Mesh, seq_mesh_scope
 from fatezero_tpu_torch.trainer.ddpm_trainer import DDPMTrainer
@@ -61,6 +63,7 @@ def tiny(tiny_models):
     ("cuda", True), ("cpu", False), ("mesh", False), ("grad", False), ("capturing", False),
     ("resnet_hook", False), ("group_norm_pre_hook", False), ("transformer_hook", False), ("global_hook", False),
     ("temporal_downsample", False), ("unet_hook", True), ("attn1_hook", True), ("attn_temporal_pre_hook", True),
+    ("resnet_backward_hook", False),
 ])
 def test_rule_engages_on_a_card_without_mesh_grad_capture_or_hook_inside_a_piece(tiny, monkeypatch, case, engages):
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: case == "capturing")
@@ -69,6 +72,7 @@ def test_rule_engages_on_a_card_without_mesh_grad_capture_or_hook_inside_a_piece
     block = tiny.down_blocks[0].attentions[0].transformer_blocks[0]
     handle = {
         "resnet_hook": lambda: tiny.down_blocks[0].resnets[0].register_forward_hook(lambda *a: None),
+        "resnet_backward_hook": lambda: tiny.down_blocks[0].resnets[0].register_full_backward_hook(lambda *a: None),
         "group_norm_pre_hook": lambda: tiny.mid_block.resnets[1].norm2.register_forward_pre_hook(lambda *a: None),
         "transformer_hook": lambda: tiny.up_blocks[1].attentions[0].register_forward_hook(lambda *a: None),
         "global_hook": lambda: torch.nn.modules.module.register_module_forward_hook(lambda *a: None),
@@ -83,14 +87,21 @@ def test_rule_engages_on_a_card_without_mesh_grad_capture_or_hook_inside_a_piece
     finally:
         if handle is not None:
             handle.remove()
-    assert not tiny._graphs.keys
+    assert not tiny._graphs.entries
+
+
+def _key(sample, timesteps, context, added, drop):
+    """A forward's static key, as `PiecewiseGraphs.forward` forms it."""
+    inputs = dict(sample=sample, t=timesteps, context=context, added=added)
+    return GC.static_key(inputs, drop, layer_norm_takes_k4())
 
 
 def test_key_follows_shapes_dtypes_rows_dropped_and_the_layernorm_kernel(monkeypatch):
+    monkeypatch.delenv("FZ_PALLAS_LN", raising=False)
     x, ctx = torch.zeros(2, 2, 8, 8, 4), torch.zeros(2, 77, 32)
     added = {"text_embeds": torch.zeros(2, 40), "time_ids": torch.zeros(2, 6)}
-    key = G.graph_key(x, 7, ctx, None, 0)
-    assert G.graph_key(torch.ones(2, 2, 8, 8, 4), 981, ctx.clone(), None, 0) == key  # values are copied in
+    key = _key(x, 7, ctx, None, 0)
+    assert _key(torch.ones(2, 2, 8, 8, 4), 981, ctx.clone(), None, 0) == key  # values are copied in
     others = [
         (torch.zeros(3, 2, 8, 8, 4), 7, torch.zeros(3, 77, 32), None, 0),  # rows
         (torch.zeros(2, 2, 16, 16, 4), 7, ctx, None, 0),  # latent size
@@ -102,9 +113,9 @@ def test_key_follows_shapes_dtypes_rows_dropped_and_the_layernorm_kernel(monkeyp
         (x, 7, ctx, None, 1),  # a replay row dropped
         (x, 7, ctx, None, 2),  # capture-only: every row a replay row
     ]
-    keys = [G.graph_key(*o) for o in others]
+    keys = [_key(*o) for o in others]
     monkeypatch.setenv("FZ_PALLAS_LN", "1")
-    keys.append(G.graph_key(x, 7, ctx, None, 0))
+    keys.append(_key(x, 7, ctx, None, 0))
     assert key not in keys and len(set(keys)) == len(keys)
 
 
@@ -113,11 +124,11 @@ def test_graphs_dropped_when_a_parameter_or_submodule_is_swapped(tiny):
     conv = tiny.conv_out
 
     def dropped(change):
-        graphs.keys["a key"] = G._Key()
-        assert not graphs.piece_hooked(tiny) and "a key" in graphs.keys
+        graphs.entries["a key"] = GC.Entry()
+        assert not GC.hooked(graphs.piece_modules(tiny)) and "a key" in graphs.entries
         change()
-        graphs.piece_hooked(tiny)
-        return "a key" not in graphs.keys
+        graphs.piece_modules(tiny)
+        return "a key" not in graphs.entries
 
     weight = conv.weight
     try:
@@ -130,7 +141,7 @@ def test_graphs_dropped_when_a_parameter_or_submodule_is_swapped(tiny):
     finally:
         tiny.conv_out = conv
         conv.weight = weight
-        graphs.keys.clear()
+        graphs.entries.clear()
 
 
 @pytest.mark.parametrize("case", ["grad_forward", "trainer_step", "key_past_the_bound", "capturing"])
@@ -142,11 +153,11 @@ def test_graphs_released_by_training_and_past_the_key_bound(tiny_models, monkeyp
     g = torch.Generator().manual_seed(0)
     x, ctx = torch.randn(1, 2, 16, 16, 4, generator=g), torch.randn(1, 77, 32, generator=g)
     try:
-        graphs.keys.update({("a key", n): G._Key() for n in range(G.MAX_KEYS)})
+        graphs.entries.update({("a key", n): GC.Entry() for n in range(G.MAX_KEYS)})
         graphs.pool, graphs.staging = "a pool", torch.empty(8, dtype=torch.uint8)
         with torch.no_grad():
             unet(x, 981, ctx)  # inference on the CPU: the graphs are left as they are
-        assert len(graphs.keys) == G.MAX_KEYS and graphs.pool is not None and not emptied
+        assert len(graphs.entries) == G.MAX_KEYS and graphs.pool is not None and not emptied
         if case == "grad_forward":
             unet(x, 981, ctx)
         elif case == "trainer_step":
@@ -156,12 +167,12 @@ def test_graphs_released_by_training_and_past_the_key_bound(tiny_models, monkeyp
             with torch.no_grad():
                 graphs.forward(unet, x, 981, ctx, None, 0, None)
         if case == "capturing":
-            assert len(graphs.keys) == G.MAX_KEYS + 1 and graphs.pool is not None and not emptied
+            assert len(graphs.entries) == G.MAX_KEYS + 1 and graphs.pool is not None and not emptied
         else:
             assert graphs.pool is None and graphs.staging is None and emptied == [1]
-            assert len(graphs.keys) == (1 if case == "key_past_the_bound" else 0)
+            assert len(graphs.entries) == (1 if case == "key_past_the_bound" else 0)
     finally:
-        graphs.keys.clear()
+        graphs.entries.clear()
         graphs.pool = graphs.staging = None
 
 
@@ -192,7 +203,7 @@ def test_cpu_forward_is_the_eager_one(tiny):
     finally:
         handle.remove()
     assert torch.equal(out, ref) and len(calls) == 2
-    assert not tiny._graphs.keys and tiny._graphs.pool is None and tiny._graphs.staging is None
+    assert not tiny._graphs.entries and tiny._graphs.pool is None and tiny._graphs.staging is None
 
 
 # ---------------------------------------------------------------------- card
@@ -305,7 +316,7 @@ def test_piecewise_edits_match_eager_ones_on_the_card(model):
         assert graphed["graphed"] > 0 and _close(graphed["latent"], eager["latent"])
     # training: a forward with grad on releases every graph and the memory the pool reserved
     graphs = m.unet._graphs
-    assert graphs.pool is not None and 0 < len(graphs.keys) <= G.MAX_KEYS
+    assert graphs.pool is not None and 0 < len(graphs.entries) <= G.MAX_KEYS
     reserved = torch.cuda.memory_reserved()
     emb = pipe.encode_prompt(SRC)[-1:]  # an inference tensor: cloned, so that autograd may keep it
     emb = PromptEmbeds(emb.context.clone(), emb.pooled.clone()) if isinstance(emb, PromptEmbeds) else emb.clone()
@@ -314,4 +325,4 @@ def test_piecewise_edits_match_eager_ones_on_the_card(model):
     torch.cuda.synchronize()
     print(f"[unet-graph] {model}: reserved {reserved / 2**30:.3f} GiB with the graphs, "
           f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB after a grad forward released them")
-    assert graphs.pool is None and not graphs.keys and torch.cuda.memory_reserved() < reserved
+    assert graphs.pool is None and not graphs.entries and torch.cuda.memory_reserved() < reserved
